@@ -1,0 +1,98 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every `*.cu` under slamtpu_torch/csrc/ is compiled by nvcc into ONE shared
+library with a plain C interface and loaded with ctypes (no PyTorch headers:
+the build takes seconds, against minutes for torch.utils.cpp_extension).
+The library lands in `build/slamtpu_torch/` at the repository root, named by
+a hash of the sources, and is built at first use — never at import, so the
+CPU tests import every module on a machine without nvcc.
+
+Each C entry point takes raw device pointers and the current CUDA stream as
+`void*`, launches, and returns `cudaGetLastError()`; `check` raises on a
+nonzero code (a refused launch never runs and a later synchronize would not
+report it).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
+    "slamtpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # src, start, out, C, H, W, N, t1, t2, stream
+    "slamtpu_window_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # resp, yx, valid, occ, sup, out, H, W, N, radius, min_response, stream
+    "slamtpu_suppress_nms": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             ctypes.c_float, _P],
+}
+
+# Seconds the last build in this process took (0.0 when loaded from disk).
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global build_seconds
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    path = BUILD_DIR / f"libslamtpu_kernels_{digest.hexdigest()[:16]}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}"
+            )
+        os.replace(tmp, path)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {code}")

@@ -1,0 +1,177 @@
+"""LK pyramid: Gaussian/Scharr filtering, antialiased half-resize and
+smoothed gradient products per level.
+
+Port of slamtpu/ops/image.py::lk_pyramid_impl / build_lk_pyramid. Level
+dicts hold a zero-padded (6, Hp, Wp) `stack` = (img, Iy, Ix, Gyy, Gxx, Gyx)
+and its six views, exactly the JAX layout (slamtpu_torch/convert.py).
+
+Two points where PyTorch's defaults differ from XLA's:
+  - `lax.conv_general_dilated` and `F.conv2d` are both correlations, so the
+    antisymmetric Scharr tap [-1, 0, 1] / 2 is used as is (no flip).
+  - `jax.image.resize(method="linear")` ANTIALIASES when it downsamples:
+    its triangle kernel is widened by 1 / scale. `F.interpolate` does not,
+    and its `antialias=True` is another kernel. The port builds JAX's
+    separable weight matrices (jax/_src/image/scale.py::compute_weight_mat,
+    same float32 steps) for the exact ceil-halved shapes (1241 -> 621 is
+    not an exact half) and applies them with two matmuls.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import device as _device  # noqa: F401  (pins full FP32)
+from ..convert import level_from_stack
+
+
+def gaussian_kernel_1d(sigma: float, radius: int | None = None) -> np.ndarray:
+    if radius is None:
+        radius = max(1, int(math.ceil(3.0 * sigma)))
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+_SCHARR_SMOOTH = np.array([3.0, 10.0, 3.0], dtype=np.float32) / 16.0
+_SCHARR_DERIV = np.array([-1.0, 0.0, 1.0], dtype=np.float32) / 2.0
+
+
+def _pad_center(kernel: np.ndarray, taps: int) -> np.ndarray:
+    extra = (taps - len(kernel)) // 2
+    return np.pad(kernel, (extra, extra))
+
+
+def _resize_weights_np(in_size: int, out_size: int) -> np.ndarray:
+    """(in, out) float32 triangle weights of jax.image.resize "linear"
+    with antialiasing (scale = out / in, translation 0)."""
+    scale = out_size / in_size
+    inv_scale = np.float32(1.0 / scale)
+    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
+    sample_f = (
+        (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale
+        - np.float32(0.5)
+    )
+    x = np.abs(
+        sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None]
+    ) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = np.sum(w, axis=0, keepdims=True)
+    w = np.where(
+        np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+        w / np.where(total != 0, total, np.float32(1.0)),
+        np.float32(0.0),
+    )
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    return torch.from_numpy(_resize_weights_np(in_size, out_size)).to(device)
+
+
+def resize_bilinear(img, shape):
+    """(H, W) -> shape, matching jax.image.resize(img, shape, "linear")."""
+    h, w = img.shape
+    oh, ow = shape
+    out = img
+    if oh != h:
+        out = _resize_weights(h, oh, img.device).T @ out
+    if ow != w:
+        out = out @ _resize_weights(w, ow, img.device)
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _pyramid_kernels(sigma: float, product_sigma: float, device):
+    """Conv weights of one level: (scharr_y, scharr_x, blur4, blur3)."""
+    gk = gaussian_kernel_1d(product_sigma)
+    lk = gaussian_kernel_1d(sigma)
+    taps = max(len(gk), len(lk))
+    gk_w, lk_w = _pad_center(gk, taps), _pad_center(lk, taps)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    return (
+        t(np.stack([_SCHARR_DERIV, _SCHARR_SMOOTH])),
+        t(np.stack([_SCHARR_SMOOTH, _SCHARR_DERIV])),
+        t(np.stack([gk_w, gk_w, gk_w, lk_w])),
+        t(np.stack([gk, gk, gk])),
+    )
+
+
+def _conv_spread(img, kys):
+    """img (H, W) -> (C, H, W): one vertical SAME correlation per row of
+    kys (C, kh)."""
+    kh = kys.shape[1]
+    return F.conv2d(img[None, None], kys[:, None, :, None],
+                    padding=(kh // 2, 0))[0]
+
+
+def _conv_grouped(x, ks, axis: int):
+    """x (C, H, W) -> per-channel SAME correlation along `axis` (0 = rows,
+    1 = columns), channel c using kernel row ks[c]."""
+    c, k = ks.shape
+    if axis == 0:
+        kern, pad = ks[:, None, :, None], (k // 2, 0)
+    else:
+        kern, pad = ks[:, None, None, :], (0, k // 2)
+    return F.conv2d(x[None], kern, padding=pad, groups=c)[0]
+
+
+def pyramid_shapes(height: int, width: int, levels: int):
+    shapes = [(height, width)]
+    for _ in range(levels):
+        h, w = shapes[-1]
+        shapes.append(((h + 1) // 2, (w + 1) // 2))
+    return shapes
+
+
+def lk_pyramid_impl(image, *, levels: int, sigma: float = 1.0, pad: int = 11,
+                    product_sigma: float = 4.0):
+    """Image (H, W) in [0, 1] (any float dtype) -> tuple of level dicts."""
+    current = image.to(torch.float32)
+    scharr_y, scharr_x, blur4, blur3 = _pyramid_kernels(
+        float(sigma), float(product_sigma), current.device
+    )
+    out = []
+    blurred_next = None
+    for level in range(levels + 1):
+        if level > 0:
+            h, w = current.shape
+            current = resize_bilinear(
+                blurred_next, ((h + 1) // 2, (w + 1) // 2)
+            )
+        g = _conv_grouped(_conv_spread(current, scharr_y), scharr_x, 1)
+        iy, ix = g[0], g[1]
+        prods = torch.stack([iy * iy, ix * ix, iy * ix])
+        if level < levels:
+            x4 = torch.cat([prods, current[None]])
+            sm = _conv_grouped(_conv_grouped(x4, blur4, 0), blur4, 1)
+            blurred_next = sm[3]
+        else:
+            sm = _conv_grouped(_conv_grouped(prods, blur3, 0), blur3, 1)
+        stack = F.pad(
+            torch.stack([current, iy, ix, sm[0], sm[1], sm[2]]),
+            (pad, pad, pad, pad),
+        )
+        out.append(level_from_stack(stack))
+    return tuple(out)
+
+
+def build_lk_pyramid(image, *, levels: int, sigma: float = 1.0,
+                     pad: int = 11, product_sigma: float = 4.0):
+    """Image (H, W) in [0, 1] -> LK pyramid (same contract as the JAX
+    package's jitted build_lk_pyramid)."""
+    return lk_pyramid_impl(image, levels=levels, sigma=sigma, pad=pad,
+                           product_sigma=product_sigma)
+
+
+def pyramid_level_shape(level: dict, pad: int):
+    h, w = level["img"].shape
+    return h - 2 * pad, w - 2 * pad

@@ -1,0 +1,282 @@
+"""Batched pyramidal Lucas-Kanade optical flow with forward-backward check.
+
+Port of the parts of slamtpu/ops/lucas_kanade.py that the classic stereo
+path runs: `pinv2x2_sym`, the default level solver `_lk_level_patch_lanes`
+(patch-cached: the first image's 6-map window and the second image's
+(T+1+2R)^2 patch are gathered ONCE per level with kernel K1,
+ops/window_gather.py), `lk_flow`, and the compacted failed-prior retry
+cascade `fb_retry_compact` (= `fb_cascade` = `fb_track_merged`, the names
+the JAX package's callers use).
+
+Semantics kept exactly, because results depend on them:
+  - the level loop stops when at most min(lk_min_active, sum(ok) // 32)
+    points still iterate (the JAX `lax.while_loop` condition). On the card
+    this is one host sync per solver iteration;
+  - a level runs only if some point is alive (the JAX `lax.cond(any(ok))`
+    becomes a Python `if`);
+  - the retry compaction scatters the non-retried rows into a dump row
+    RETRY_CAP that is then dropped.
+
+Layout: per-point windows are (N, T, T) (the JAX package's lane-major
+(T, T, N) layout exists only for the TPU's 128 lanes). Window selection
+inside the cached patch is an exact index gather where the JAX package
+sums 2R + 1 masked shifts (each output is one input either way).
+"""
+from __future__ import annotations
+
+import torch
+
+from .image import pyramid_level_shape
+from .window_gather import gather_windows
+
+LK_PATCH_MARGIN = 6
+
+# Lane budget of the compacted failed-prior retry cascade.
+RETRY_CAP = 256
+
+
+def lk_pad(window: int) -> int:
+    """Image padding required by the LK level solver for a half-window."""
+    return window + LK_PATCH_MARGIN + 2
+
+
+def svd2x2_sym_eig(a, b, c):
+    """Eigenvalues (descending) of the symmetric 2x2 [[a, b], [b, c]]."""
+    half_tr = 0.5 * (a + c)
+    disc = torch.sqrt(torch.square(0.5 * (a - c)) + torch.square(b))
+    return half_tr + disc, half_tr - disc
+
+
+def pinv2x2_sym(a, b, c, tol_scale: float = 1e-6):
+    """Moore-Penrose pseudo-inverse of the symmetric 2x2 [[a, b], [b, c]]:
+    singular values below tol_scale * s_max are zeroed, not inverted.
+    Returns (ia, ib, ic, s1, s2)."""
+    s1, s2 = svd2x2_sym_eig(a, b, c)
+    theta = 0.5 * torch.atan2(2.0 * b, a - c)
+    ct, st = torch.cos(theta), torch.sin(theta)
+    tol = tol_scale * torch.maximum(torch.abs(s1), torch.abs(s2))
+    zero = torch.zeros_like(s1)
+    inv1 = torch.where(torch.abs(s1) > tol, 1.0 / s1, zero)
+    inv2 = torch.where(torch.abs(s2) > tol, 1.0 / s2, zero)
+    ia = inv1 * ct * ct + inv2 * st * st
+    ib = (inv1 - inv2) * ct * st
+    ic = inv1 * st * st + inv2 * ct * ct
+    return ia, ib, ic, s1, s2
+
+
+def _norm2(v):
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def _lk_level_patch(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
+                    eig_thresh, pad, min_active: int = 0,
+                    escape_fail: bool = False):
+    """One pyramid level for all N points (JAX `_lk_level_patch_lanes`).
+
+    p_lvl: (N, 2) int32 level coordinates (y, x); flow: (N, 2) f32 at this
+    level's scale; ok: (N,) bool. Returns (flow, ok).
+    """
+    H, W = hw
+    w = window
+    T = 2 * w + 1
+    R = LK_PATCH_MARGIN
+    P = T + 1 + 2 * R
+    n = p_lvl.shape[0]
+    dev = flow.device
+
+    offs = torch.arange(-w, w + 1, dtype=torch.float32, device=dev)
+    oy = offs[None, :, None]            # (1, T, 1)
+    ox = offs[None, None, :]            # (1, 1, T)
+
+    start = p_lvl - w + pad
+    stack_w = gather_windows(d1["stack"], start, T, T)  # (N, 6, T, T)
+    img1_w, iy_w, ix_w = stack_w[:, 0], stack_w[:, 1], stack_w[:, 2]
+    gyy_w, gxx_w, gyx_w = stack_w[:, 3], stack_w[:, 4], stack_w[:, 5]
+
+    p_f = p_lvl.to(torch.float32)
+    hmax, wmax = float(H - 1), float(W - 1)
+
+    def in_bounds(q):
+        return ((q[:, 0] >= 0.0) & (q[:, 0] <= hmax)
+                & (q[:, 1] >= 0.0) & (q[:, 1] <= wmax))
+
+    def window_mask(q):
+        up = torch.floor(torch.clamp(torch.minimum(p_f[:, 0], q[:, 0]),
+                                     max=float(w)))
+        down = torch.floor(torch.clamp(
+            hmax - torch.maximum(p_f[:, 0], q[:, 0]), max=float(w)))
+        left = torch.floor(torch.clamp(torch.minimum(p_f[:, 1], q[:, 1]),
+                                       max=float(w)))
+        right = torch.floor(torch.clamp(
+            wmax - torch.maximum(p_f[:, 1], q[:, 1]), max=float(w)))
+        my = (oy >= -up[:, None, None]) & (oy <= down[:, None, None])
+        mx = (ox >= -left[:, None, None]) & (ox <= right[:, None, None])
+        return (my & mx).to(torch.float32)  # (N, T, T)
+
+    def wsum(x):
+        return torch.sum(x, dim=(1, 2))
+
+    q0 = p_f + flow
+    q0_safe = torch.where(in_bounds(q0)[:, None], q0, p_f)
+    base = torch.floor(q0_safe).to(torch.int32) - w - R + pad
+    patch = gather_windows(d2["img"][None], base, P, P)[:, 0]  # (N, P, P)
+
+    # Mask + structure tensor once per level, clamped at the entry
+    # correspondence (reference lucas_kanade.jl:58-72).
+    mask = window_mask(q0_safe)
+    ia, ib, ic, _, s2 = pinv2x2_sym(wsum(gyy_w * mask), wsum(gyx_w * mask),
+                                    wsum(gxx_w * mask))
+    min_eig = s2 / torch.clamp(wsum(mask), min=1.0)
+    ok = ok & (min_eig >= eig_thresh)
+
+    rows = torch.arange(n, device=dev)[:, None, None]
+    steps = torch.arange(T + 1, device=dev)
+
+    stop_thresh = min(min_active, int(ok.sum()) // 32)
+    running = ok.clone()
+    it = 0
+    while it < iters and int(running.sum()) > stop_thresh:
+        q = p_f + flow
+        inb = in_bounds(q)
+        fail = running & ~inb
+        q_safe = torch.where(inb[:, None], q, p_f)
+        q_floor = torch.floor(q_safe)
+        frac = q_safe - q_floor
+        rel = q_floor.to(torch.int32) - w + pad - base
+        # A point drifting past the patch margin freezes (keeps its last
+        # in-margin flow); in the backward pass it fails instead.
+        escaped = ((rel[:, 0] < 0) | (rel[:, 0] > 2 * R)
+                   | (rel[:, 1] < 0) | (rel[:, 1] > 2 * R))
+        if escape_fail:
+            fail = fail | (running & escaped)
+        rel = torch.clamp(rel, 0, 2 * R).long()
+
+        big = patch[rows, (rel[:, 0, None] + steps)[:, :, None],
+                    (rel[:, 1, None] + steps)[:, None, :]]  # (N, T+1, T+1)
+        fy = frac[:, 0][:, None, None]
+        fx = frac[:, 1][:, None, None]
+        img2_s = (
+            (1.0 - fy) * (1.0 - fx) * big[:, :T, :T]
+            + (1.0 - fy) * fx * big[:, :T, 1:]
+            + fy * (1.0 - fx) * big[:, 1:, :T]
+            + fy * fx * big[:, 1:, 1:]
+        )
+
+        diff = (img1_w - img2_s) * mask
+        by = wsum(diff * iy_w)
+        bx = wsum(diff * ix_w)
+        step_y = ia * by + ib * bx
+        step_x = ib * by + ic * bx
+
+        converged = (torch.abs(step_y) < eps) & (torch.abs(step_x) < eps)
+        new_flow = flow + torch.stack([step_y, step_x], dim=-1)
+        fail = fail | (running & ~converged & ~in_bounds(p_f + new_flow))
+
+        advance = running & ~fail & ~converged & ~escaped
+        flow = torch.where(advance[:, None], new_flow, flow)
+        ok = ok & ~fail
+        running = running & ok & ~converged & ~escaped
+        it += 1
+    return flow, ok
+
+
+def lk_flow(pyr1, pyr2, points, displacement, valid, *, levels, window,
+            iters, eps, eig_thresh, pad, min_active: int = 0,
+            escape_fail: bool = False):
+    """Pyramidal LK for N points (reference lucas_kanade.jl:9-100).
+
+    points: (N, 2) f32 full-resolution (y, x); displacement: (N, 2) prior
+    in COARSEST-level units. Returns (flow at level-0 scale, status).
+    """
+    flow = displacement.to(torch.float32)
+    ok = valid
+    for level in range(levels, -1, -1):
+        d1, d2 = pyr1[level], pyr2[level]
+        if bool(ok.any()):
+            p_lvl = torch.floor(points / (2.0 ** level)).to(torch.int32)
+            flow, ok = _lk_level_patch(
+                d1, d2, p_lvl, flow, ok, hw=pyramid_level_shape(d1, pad),
+                window=window, iters=iters, eps=eps, eig_thresh=eig_thresh,
+                pad=pad, min_active=min_active, escape_fail=escape_fail,
+            )
+        if level > 0:
+            flow = flow * 2.0
+    return flow, ok
+
+
+def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
+                     *, levels, prior_level=1, window=9, iters=30, eps=1e-2,
+                     eig_thresh=1e-4, pad=17, max_distance=1.0,
+                     min_active=0):
+    """Forward-backward KLT for both tracking families + compacted retry.
+
+    Plain points enter at the coarsest level; prior points are injected at
+    `prior_level` with their displacement prior (map_manager.jl:458,466).
+    Prior points whose forward-backward track failed are re-tracked as
+    plain points in a RETRY_CAP-lane second cascade (map_manager.jl:
+    534-537); overflowing points simply fail.
+
+    Returns (new_px, ok, tracked_with_prior).
+    """
+    level_kw = dict(window=window, iters=iters, eps=eps,
+                    eig_thresh=eig_thresh, pad=pad)
+
+    def cascade(px_c, active0, inject_mask, inject_disp):
+        flow = torch.zeros_like(px_c)
+        ok = active0
+        for level in range(levels, -1, -1):
+            if inject_mask is not None and level == prior_level:
+                flow = torch.where((inject_mask & ~active0)[:, None],
+                                   inject_disp, flow)
+                ok = ok | inject_mask
+            d1, d2 = pyr_prev[level], pyr_cur[level]
+            if bool(ok.any()):
+                p_lvl = torch.floor(px_c / (2.0 ** level)).to(torch.int32)
+                flow, ok = _lk_level_patch(
+                    d1, d2, p_lvl, flow, ok,
+                    hw=pyramid_level_shape(d1, pad), min_active=min_active,
+                    **level_kw,
+                )
+            if level > 0:
+                flow = flow * 2.0
+        return flow, ok
+
+    def backward(px_c, flow_f, st):
+        flow_b, bst = lk_flow(
+            pyr_cur, pyr_prev, px_c + flow_f, -flow_f, st, levels=0,
+            min_active=min_active, escape_fail=True, **level_kw,
+        )
+        return st & bst & (_norm2(flow_f + flow_b) < max_distance)
+
+    plain = valid & ~prior_mask
+    prior = valid & prior_mask
+
+    flow_m, ok_m = cascade(px, plain, prior, disp_prior)
+    okfb_m = backward(px, flow_m, ok_m)
+
+    # Compact the failed priors into RETRY_CAP lanes; every other row
+    # scatters into the dump row RETRY_CAP, which is dropped.
+    retry_mask = prior & ~okfb_m
+    rank = torch.cumsum(retry_mask.to(torch.int64), 0) - retry_mask.long()
+    in_cap = retry_mask & (rank < RETRY_CAP)
+    slot = torch.where(in_cap, rank, torch.full_like(rank, RETRY_CAP))
+    px_r = torch.zeros((RETRY_CAP + 1, 2), dtype=px.dtype, device=px.device)
+    px_r[slot] = px
+    valid_r = torch.zeros(RETRY_CAP + 1, dtype=torch.bool, device=px.device)
+    valid_r[slot] = in_cap
+    px_r, valid_r = px_r[:RETRY_CAP], valid_r[:RETRY_CAP]
+    flow_r, ok_r = cascade(px_r, valid_r, None, None)
+    okfb_r = backward(px_r, flow_r, ok_r)
+
+    gather_idx = torch.clamp(rank, 0, RETRY_CAP - 1)
+    use_retry = in_cap & okfb_r[gather_idx]
+    new_px = torch.where(use_retry[:, None], px + flow_r[gather_idx],
+                         px + flow_m)
+    ok = (okfb_m | use_retry) & valid
+    return new_px, ok, prior & okfb_m
+
+
+# The JAX package's production entry points for this cascade: `fb_cascade`
+# (inside the fused programs) and the jitted `fb_track_merged`.
+fb_cascade = fb_retry_compact
+fb_track_merged = fb_retry_compact

@@ -1,0 +1,136 @@
+"""LK pyramid and forward-backward KLT against the JAX package.
+
+Pyramid: same filters, the antialiased half-resize rebuilt from
+jax.image.resize's weight matrices; float32 sums in another order, so the
+tolerance is 1e-6 absolute on [0, 1]-scaled maps. KLT on the synthetic
+blobs of tests/test_dma_gather.py: the JAX package runs its XLA gather path
+on the CPU, the port its plain gather; status masks must be equal and flows
+within 1e-3 px (float32 window sums in another order, amplified by the
+2x2 solve over up to 30 iterations).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from slamtpu.ops.image import build_lk_pyramid as j_pyramid
+from slamtpu.ops.lucas_kanade import fb_track_merged as j_fb
+from slamtpu.ops.lucas_kanade import lk_flow as j_lk_flow
+from slamtpu.ops.lucas_kanade import lk_pad
+from slamtpu.ops.lucas_kanade import pinv2x2_sym as j_pinv
+from slamtpu_torch.convert import pyramid_from_numpy, pyramid_to_numpy
+from slamtpu_torch.ops.image import build_lk_pyramid as t_pyramid
+from slamtpu_torch.ops.lucas_kanade import fb_track_merged as t_fb
+from slamtpu_torch.ops.lucas_kanade import lk_flow as t_lk_flow
+from slamtpu_torch.ops.lucas_kanade import pinv2x2_sym as t_pinv
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("h,w,dtype", [(160, 224, np.float16),
+                                       (75, 131, np.float32),
+                                       (376 // 4, 1241 // 4, np.float16)])
+def test_pyramid_matches_jax(h, w, dtype):
+    rng = np.random.default_rng(h)
+    img = rng.uniform(0, 1, (h, w)).astype(dtype)
+    pj = j_pyramid(jnp.asarray(img), levels=3, pad=17)
+    pt = pyramid_to_numpy(t_pyramid(torch.from_numpy(img), levels=3, pad=17))
+    assert len(pt) == 4
+    for lj, lt in zip(pj, pt):
+        sj = np.asarray(lj["stack"])
+        assert lt["stack"].shape == sj.shape
+        np.testing.assert_allclose(lt["stack"], sj, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(lt["Gyx"], lt["stack"][5])
+
+
+def test_pyramid_roundtrip_through_convert():
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, (40, 56)).astype(np.float32)
+    pj = j_pyramid(jnp.asarray(img), levels=2, pad=17)
+    pyr_np = tuple({k: np.asarray(v) for k, v in lv.items()} for lv in pj)
+    back = pyramid_to_numpy(pyramid_from_numpy(pyr_np, "cpu"))
+    for a, b in zip(pyr_np, back):
+        np.testing.assert_array_equal(a["stack"], b["stack"])
+        np.testing.assert_array_equal(a["Ix"], b["Ix"])
+
+
+def test_pinv2x2_matches_jax():
+    rng = np.random.default_rng(1)
+    a, c = rng.uniform(0, 2, (2, 200)).astype(np.float32)
+    b = rng.uniform(-1, 1, 200).astype(np.float32)
+    a[:10] = c[:10] = b[:10] = 0.0  # singular
+    out_t = t_pinv(*(torch.from_numpy(v) for v in (a, b, c)))
+    out_j = j_pinv(*(jnp.asarray(v) for v in (a, b, c)))
+    for x, y in zip(out_t, out_j):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _blobs(h=64, w=96, n=32, seed=5):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.zeros((h, w))
+    pts = []
+    for _ in range(n):
+        cy, cx = rng.uniform(10, h - 10), rng.uniform(10, w - 10)
+        img += rng.uniform(0.5, 1.0) * np.exp(
+            -(((yy - cy) ** 2) + (xx - cx) ** 2) / (2 * 2.0 ** 2)
+        )
+        pts.append((cy, cx))
+    img = (img / img.max()).astype(np.float32)
+    return img, np.roll(img, (1, -2), (0, 1)), np.asarray(pts, np.float32)
+
+
+@pytest.mark.parametrize("levels,window,min_active", [(1, 4, 0), (2, 4, 16),
+                                                      (3, 9, 16)])
+def test_fb_track_merged_matches_jax(levels, window, min_active):
+    img, img2, px = _blobs()
+    n = len(px)
+    pad = lk_pad(window)
+    prior = np.zeros(n, bool)
+    prior[:10] = True
+    disp = np.zeros((n, 2), np.float32)
+    disp[:10] = [0.5, -1.0]
+    disp[3:6] = [5.0, 5.0]  # bad priors: exercise the compacted retry
+    valid = np.ones(n, bool)
+    valid[-3:] = False
+    kw = dict(levels=levels, prior_level=1, window=window, iters=30,
+              eps=1e-2, eig_thresh=1e-4, pad=pad, max_distance=1.0,
+              min_active=min_active)
+    jr = j_fb(j_pyramid(jnp.asarray(img), levels=levels, pad=pad),
+              j_pyramid(jnp.asarray(img2), levels=levels, pad=pad),
+              jnp.asarray(px), jnp.asarray(prior), jnp.asarray(disp),
+              jnp.asarray(valid), **kw)
+    tr = t_fb(t_pyramid(torch.from_numpy(img), levels=levels, pad=pad),
+              t_pyramid(torch.from_numpy(img2), levels=levels, pad=pad),
+              torch.from_numpy(px), torch.from_numpy(prior),
+              torch.from_numpy(disp), torch.from_numpy(valid), **kw)
+    new_j, ok_j, prior_ok_j = (np.asarray(v) for v in jr)
+    new_t, ok_t, prior_ok_t = (v.numpy() for v in tr)
+    np.testing.assert_array_equal(ok_t, ok_j)
+    np.testing.assert_array_equal(prior_ok_t, prior_ok_j)
+    assert ok_t.sum() >= n // 2
+    np.testing.assert_allclose(new_t[ok_t], new_j[ok_j], atol=1e-3)
+    # The scene moved by (1, -2): tracked points land there (blobs overlap
+    # and the roll wraps at the border, so hold the median).
+    moved = new_t[ok_t] - px[ok_t]
+    assert np.median(np.abs(moved - np.float32([1.0, -2.0]))) < 0.05
+
+
+def test_lk_flow_backward_matches_jax():
+    """Level-0 pass with escape_fail (the backward check's kernel)."""
+    img, img2, px = _blobs(seed=6)
+    pad = lk_pad(4)
+    flow0 = np.tile(np.float32([0.8, -1.7]), (len(px), 1))
+    kw = dict(levels=0, window=4, iters=30, eps=1e-2, eig_thresh=1e-4,
+              pad=pad, min_active=0, escape_fail=True)
+    fj, okj = j_lk_flow(j_pyramid(jnp.asarray(img), levels=0, pad=pad),
+                        j_pyramid(jnp.asarray(img2), levels=0, pad=pad),
+                        jnp.asarray(px), jnp.asarray(flow0),
+                        jnp.ones(len(px), bool), **kw)
+    ft, okt = t_lk_flow(t_pyramid(torch.from_numpy(img), levels=0, pad=pad),
+                        t_pyramid(torch.from_numpy(img2), levels=0, pad=pad),
+                        torch.from_numpy(px), torch.from_numpy(flow0),
+                        torch.ones(len(px), dtype=torch.bool), **kw)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), atol=1e-3)

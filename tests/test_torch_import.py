@@ -1,0 +1,107 @@
+"""The PyTorch port imports without jax, and refuses what it does not run.
+
+The GPU machine has no jax installed, so `slamtpu_torch` must import (and
+run) with jax unavailable; SlamManager must never fall back to the CPU on
+its own, and must refuse every configuration outside the ported slice
+instead of quietly running something else.
+"""
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from slamtpu.datasets.synthetic import make_scene
+from slamtpu.params import Params
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class _BlockJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError(f"jax is blocked: {name}")
+        return None
+
+for mod in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, _BlockJax())
+
+import slamtpu_torch
+names = [m.name for m in pkgutil.walk_packages(slamtpu_torch.__path__, "slamtpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_imports_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_no_jax_import_in_sources():
+    for path in (REPO / "slamtpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "import jax" not in text, path
+        assert "from jax" not in text, path
+
+
+def _stereo_scene():
+    return make_scene(n_frames=2, height=48, width=64, n_points=50,
+                      stereo=True, seed=0)
+
+
+def _slice_params(**overrides):
+    kw = dict(stereo=True, pipelined=False, do_local_bundle_adjustment=False)
+    kw.update(overrides)
+    return Params(**kw)
+
+
+def test_cuda_device_without_gpu_raises(monkeypatch):
+    from slamtpu_torch import SlamManager
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = _stereo_scene()
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlamManager(_slice_params(), scene.camera,
+                    right_camera=scene.right_camera, device="cuda")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("stereo", False),
+    ("pipelined", True),
+    ("do_local_bundle_adjustment", True),
+    ("do_local_matching", True),
+    ("sequential", False),
+    ("subpixel_detect", True),
+    ("stereo_klt_1d", True),
+    ("fused_front_end", False),
+    ("fused_stereo", False),
+])
+def test_out_of_slice_config_raises(field, value):
+    from slamtpu_torch import SlamManager
+
+    scene = _stereo_scene()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SlamManager(_slice_params(**{field: value}), scene.camera,
+                    right_camera=scene.right_camera, device="cpu")
+
+
+def test_slice_config_constructs_on_cpu():
+    from slamtpu_torch import SlamManager
+
+    scene = _stereo_scene()
+    sm = SlamManager(_slice_params(), scene.camera,
+                     right_camera=scene.right_camera, device="cpu")
+    assert sm.device.type == "cpu"
