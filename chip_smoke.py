@@ -8,12 +8,26 @@ Phases, one line each; any failure raises and exits nonzero:
   3. K1 (window gather) against its plain PyTorch version at the LK main
      path's shapes — must be equal — with median CUDA-event times of both;
   4. K2 (suppression + NMS) likewise at the detection shapes — bit-exact;
-  5. the main path: a 30-frame 376x1241 synthetic stereo city scene through
-     slamtpu_torch.SlamManager(device="cuda"); asserts no reset, 6 to 12
-     keyframes, both kernels launched, metric ATE <= 0.06 m (the JAX
-     package's CPU run of this scene and Params: 9 keyframes, 0.0205 m).
-Then one JSON line with per-kernel numbers and, last, the JSON status line.
-Without a CUDA device it exits nonzero before printing any result.
+  5. the classic path: a 30-frame 376x1241 synthetic stereo city scene
+     through slamtpu_torch.SlamManager(device="cuda") with
+     Params(stereo=True, pipelined=False, do_local_bundle_adjustment=False);
+     asserts no reset, 6 to 12 keyframes, both kernels launched, metric
+     ATE <= 0.06 m (the JAX package's CPU run of this scene and Params:
+     9 keyframes, 0.0205 m);
+  6. the default path: bench.py's 60-frame 376x1241 city scene with
+     Params(stereo=True) — pipelined tracking, the carry-chained async
+     keyframe program, deferred local BA; asserts no reset, a finite
+     60-pose trajectory, > 40 pipelined dispatches, >= 3 async keyframes,
+     >= 2 BA results applied, K2 launched at least once per keyframe
+     program, K1 launched, 10 to 14 keyframes and metric ATE <= 0.0709 m
+     (the JAX package's CPU run of this scene and Params: 12 keyframes,
+     0.03044 m; the bounds are +-2 keyframes and 2x + 0.01 m). Prints the
+     FPS after 15 warm-up frames, the stage timers and the device time of
+     one BA solve at the run's padded shape.
+Each path's kernel counts are set to 0 just before it runs and read just
+after. Then one JSON line with per-kernel numbers and, last, the JSON
+status line. Without a CUDA device it exits nonzero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -178,6 +192,124 @@ def phase_main_path(dev):
     return launches
 
 
+# The JAX package's CPU run of phase 6's scene and Params (PERF.md).
+JAX_DEFAULT_KFS = 12
+JAX_DEFAULT_ATE_M = 0.03044
+
+
+def phase_default_path(dev):
+    """60-frame stereo city scene through the port's default path."""
+    import numpy as np
+    import torch
+
+    from slamtpu.datasets.synthetic import make_scene
+    from slamtpu.eval.ate import ate_rmse
+    from slamtpu.utils.profiling import TIMERS
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.models import estimator as est_mod
+    from slamtpu_torch.ops.detect_suppress import suppress_and_nms
+    from slamtpu_torch.ops.keyframe_step import keyframe_step_carry
+    from slamtpu_torch.ops.window_gather import gather_windows
+
+    scene = make_scene(n_frames=60, height=376, width=1241, n_points=6000,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    frames = [scene.frame(i) for i in range(len(scene))]
+    params = Params(stereo=True)
+    saver = ReplaySaver()
+    sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
+                     slam_io=saver, device=dev)
+
+    # Keep the last BA call's inputs to time one solve afterwards.
+    ba_calls = []
+    ba_orig = est_mod.local_bundle_adjustment_packed
+
+    def ba_spy(buf, **kw):
+        ba_calls.append((buf, kw))
+        return ba_orig(buf, **kw)
+
+    est_mod.local_bundle_adjustment_packed = ba_spy
+    TIMERS.reset()
+    gather_windows.launches = 0
+    suppress_and_nms.launches = 0
+    keyframe_step_carry.launches = 0
+    warm = 15
+    t_warm = None
+    t0 = time.perf_counter()
+    try:
+        for i, (left, right) in enumerate(frames):
+            if i == warm:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            sm.add_stereo_image(left, right, float(scene.timestamps[i]))
+        sm.finish()
+        torch.cuda.synchronize()
+    finally:
+        est_mod.local_bundle_adjustment_packed = ba_orig
+    t1 = time.perf_counter()
+    launches = {"window_gather": gather_windows.launches,
+                "suppress_nms": suppress_and_nms.launches}
+    kf_programs = keyframe_step_carry.launches
+
+    est = saver.trajectory_xyz().astype(np.float64)
+    gt = np.stack([p[:3, 3] for p in scene.poses_wc])
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"trajectory {est.shape} not finite / "
+                             f"not {gt.shape}")
+    ate = ate_rmse(est, gt, align_scale=False)
+    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+    n_kf = sm.map_manager.nb_keyframes
+    fps = (len(frames) - warm) / (t1 - t_warm)
+    summary = TIMERS.summary()
+
+    def calls(stage):
+        return summary.get(stage, {}).get("calls", 0)
+
+    ba_ms = None
+    if ba_calls:
+        buf, kw = ba_calls[-1]
+        ba_ms = _median_ms(lambda: ba_orig(buf, **kw), reps=5, warmup=1)
+    _log("default_path", frames=len(frames),
+         fps_after_15=f"{fps:.3f}", total_s=f"{t1 - t0:.3f}",
+         keyframes=n_kf, resets=sm.n_resets, ate_m=f"{ate:.5f}",
+         path_m=f"{path:.3f}", dispatches=calls("fe.pipe.dispatch"),
+         async_keyframes=calls("mp.kf_async.dispatch"),
+         keyframe_programs=kf_programs, ba_solves=calls("es.ba"),
+         ba_applied=calls("es.ba_apply"),
+         ba_device_ms=f"{ba_ms:.3f}" if ba_ms is not None else "none",
+         ba_shape=(f"P={ba_calls[-1][1]['P']},X={ba_calls[-1][1]['X']},"
+                   f"O={ba_calls[-1][1]['O']}") if ba_calls else "none",
+         launches=json.dumps(launches, separators=(",", ":")))
+    stages = {k: {"calls": v["calls"], "mean_ms": v["mean_ms"],
+                  "p50_ms": v["p50_ms"]}
+              for k, v in summary.items()
+              if k.startswith(("fe.pipe.", "mp.kf_async.", "es.ba", "sm."))}
+    print("[default_path] stage_timers " + json.dumps(stages), flush=True)
+
+    if sm.n_resets:
+        raise AssertionError(f"{sm.n_resets} reset(s) on the default path")
+    if not calls("fe.pipe.dispatch") > 40:
+        raise AssertionError("the pipeline did not engage: "
+                             f"{calls('fe.pipe.dispatch')} dispatches")
+    if not calls("mp.kf_async.dispatch") >= 3:
+        raise AssertionError(f"{calls('mp.kf_async.dispatch')} async "
+                             "keyframes, expected >= 3")
+    if not calls("es.ba_apply") >= 2:
+        raise AssertionError(f"{calls('es.ba_apply')} BA results applied, "
+                             "expected >= 2")
+    if not (kf_programs >= 3 and launches["suppress_nms"] >= kf_programs):
+        raise AssertionError(f"K2 launched {launches['suppress_nms']} times "
+                             f"for {kf_programs} keyframe programs")
+    if launches["window_gather"] <= 0:
+        raise AssertionError("K1 was never launched on the default path")
+    if abs(n_kf - JAX_DEFAULT_KFS) > 2:
+        raise AssertionError(f"{n_kf} keyframes, expected "
+                             f"{JAX_DEFAULT_KFS} +- 2")
+    ate_bound = 2.0 * JAX_DEFAULT_ATE_M + 0.01
+    if not ate <= ate_bound:
+        raise AssertionError(f"metric ATE {ate:.4f} m > {ate_bound:.4f} m")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -205,9 +337,12 @@ def main() -> int:
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
-    launches = phase_main_path(dev)
-    k1["launches"] = launches["window_gather"]
-    k2["launches"] = launches["suppress_nms"]
+    classic = phase_main_path(dev)
+    default = phase_default_path(dev)
+    for entry, kernel in ((k1, "window_gather"), (k2, "suppress_nms")):
+        entry["launches"] = default[kernel]
+        entry["launches_by_path"] = {"classic": classic[kernel],
+                                     "default": default[kernel]}
 
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,26 @@ package — so the port never enables it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+
+def upload(arr, device, dtype=None) -> torch.Tensor:
+    """numpy -> a tensor on `device` that owns its memory.
+
+    On the card the copy goes through pinned host memory with
+    non_blocking=True (PyTorch keeps the pinned block alive until the copy
+    has run); on the CPU it is a plain copy, so the host array may be
+    reused at once either way.
+    """
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
 
 
 def resolve_device(device) -> torch.device:

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `*.cu` under slamtpu_torch/csrc/ is compiled by nvcc into ONE shared
-library with a plain C interface and loaded with ctypes (no PyTorch headers:
-the build takes seconds, against minutes for torch.utils.cpp_extension).
+Every `*.cu` under slamtpu_torch/csrc/ is compiled by its own nvcc process,
+all started together, and the objects are linked into ONE shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers: the build
+takes seconds, against minutes for torch.utils.cpp_extension).
 The library lands in `build/slamtpu_torch/` at the repository root, named by
 a hash of the sources, and is built at first use — never at import, so the
 CPU tests import every module on a machine without nvcc.
@@ -28,7 +29,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "slamtpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -69,14 +70,31 @@ def library() -> ctypes.CDLL:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        objs = [path.with_suffix(f".{src.stem}.{os.getpid()}.o")
+                for src in sources]
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}"
-            )
+        nvcc = _nvcc()
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        # Wait for every compile before reporting the first failure.
+        results = []
+        for src, proc in zip(sources, procs):
+            out, err = proc.communicate()
+            results.append((proc.returncode, f"{src.name}: {out}{err}"))
+        for code, output in results:
+            _check_nvcc(code, output)
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        _check_nvcc(proc.returncode, proc.stdout + proc.stderr)
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, path)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))
@@ -85,6 +103,11 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _check_nvcc(code, output: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{output}")
 
 
 def stream_ptr(device) -> int:

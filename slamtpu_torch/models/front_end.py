@@ -1,15 +1,26 @@
 """FrontEnd: per-frame tracking and pose estimation.
 
-Port of the classic (non-pipelined) half of slamtpu/models/front_end.py:
-pyramid preprocess -> motion-model prediction -> KLT tracking -> (pre-init)
-parallax gate + essential-matrix init / (post-init) the fused per-frame
-device step `frontend_step_v2` -> host bookkeeping -> motion-model update
--> keyframe decision. The pipelined dispatch/apply machinery comes later
-(ROADMAP Queue 1).
+Port of slamtpu/models/front_end.py. The classic half: pyramid preprocess
+-> motion-model prediction -> KLT tracking -> (pre-init) parallax gate +
+essential-matrix init / (post-init) the fused per-frame device step
+`frontend_step_v2` -> host bookkeeping -> motion-model update -> keyframe
+decision. The pipelined half: a device-resident carry
+(ops/track_step.py); frame N+1 is dispatched off frame N's device outputs
+before frame N's results are applied on the host, keyframes and resets
+discard the speculated dispatches and replay them after a resync, and
+`push_correction` reconciles the carry after an async keyframe.
+
+In the port a "dispatch" blocks until its LK loops finish (their stop rule
+syncs the host once per solver iteration), so the pipeline changes the
+order of the host's work, not its overlap; the results are the JAX
+pipelined path's. Left out: `adopt_keyframe_carry` (speculate_keyframes),
+the background prefetch (`track_prefetch`) and `SLAMTPU_C2HA`.
 """
 from __future__ import annotations
 
 import logging
+from collections import deque
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -22,6 +33,8 @@ from slamtpu.params import Params
 from slamtpu.utils.padding import pad_rows, valid_mask
 from slamtpu.utils.profiling import TIMERS
 
+from ..device import upload
+from ..ops import track_step as ts
 from ..ops.frontend_step import (
     FL_HAS_MP, FL_PRIOR, FL_VALID, PK_DISP, PK_MP, PK_PREV_BEAR, PK_PREV_UND,
     PK_PX, frontend_step_v2,
@@ -37,6 +50,22 @@ log = logging.getLogger("slamtpu_torch.fe")
 
 def _fetch(res: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in res.items()}
+
+
+@dataclass
+class InflightFrame:
+    """One dispatched-but-not-applied tracked frame (pipelined mode)."""
+    fid: int
+    time: float
+    image_dev: object
+    right_dev: object
+    per_kp: object        # device tensor (cap, 13)
+    scalars: object       # device tensor (60,)
+    carry_after: object   # device carry after this step (shared, read-only)
+
+    def fetch(self):
+        """Host numpy (per_kp, scalars)."""
+        return self.per_kp.cpu().numpy(), self.scalars.cpu().numpy()
 
 
 class FrontEnd:
@@ -60,6 +89,16 @@ class FrontEnd:
         )
         self._intrinsics = self._dev(self._intrinsics_np)
         self._pad = lk_pad(params.window_size)
+        # -- pipelined (device-resident carry) state -----------------------
+        self.inflight: deque = deque()
+        self._carry = None
+        self._slot_ids: list = []
+        self._last_dispatch_time = -1.0
+        self._frame_reset_taken = False
+        # Keyframe-cadence predictor (pipelined dispatch gating): id of the
+        # last keyframe-decision frame and the last observed KF interval.
+        self._last_kf_fid = 0
+        self._last_kf_interval = 3
         # Diagnostic: cumulative keypoint-removal causes and per-gate
         # candidate counts (removals / candidates = per-gate removal rate).
         self.removal_counts = {"track": 0, "ess": 0, "p3p": 0, "pnp": 0}
@@ -359,6 +398,235 @@ class FrontEnd:
         self.motion_model.update(frame.wc, time)
         return self.check_new_kf_required(median_parallax=float(scalars[38]))
 
+    # ------------------------------------------------------------------
+    # Pipelined mode: device-resident carry (ops/track_step.py). The host
+    # dispatches frame N+1 off frame N's device outputs BEFORE applying
+    # frame N's results; bookkeeping applies one frame behind. Keyframes /
+    # resets invalidate the speculated dispatches: the carry is rebuilt
+    # from host state and the speculated frames replay.
+    # ------------------------------------------------------------------
+
+    @property
+    def pipeline_active(self) -> bool:
+        return self._carry is not None
+
+    def can_start_pipeline(self) -> bool:
+        """Same readiness conditions as the fused path (track_mono_fused)."""
+        return (
+            self.params.vision_initialized
+            and self.current_pyramid is not None
+            and not self.needs_bootstrap
+            and self.map_manager.frames_map.get(self.current_frame.kfid)
+            is not None
+        )
+
+    def start_pipeline(self):
+        """(Re)build the device carry from authoritative host state: at
+        pipeline entry and after every synchronous keyframe / frame reset,
+        the only points where the keypoint set, map-point positions or the
+        previous-keyframe join set change outside an async keyframe."""
+        _t = TIMERS.stage("fe.resync")
+        _t.__enter__()
+        frame = self.current_frame
+        mm = self.map_manager
+        p = self.params
+        cap = p.keypoint_capacity
+        prev_kf = mm.frames_map[frame.kfid]
+
+        kp = np.zeros((cap, 10), np.float32)
+        ids: list = []
+        for kpo in list(frame.keypoints.values()):
+            if kpo.is_3d and kpo.id not in mm.map_points:
+                mm.remove_mappoint_obs(kpo.id, frame.kfid)
+                continue
+            if len(ids) >= cap:
+                log.warning("[FE] keypoints exceed capacity %d.", cap)
+                break
+            j = len(ids)
+            flags = ts.FL_VALID
+            kp[j, ts.TK_PX] = kpo.pixel
+            if kpo.is_3d:
+                flags |= ts.FL_HAS_MP
+                kp[j, ts.TK_MP] = mm.map_points[kpo.id].get_position()
+            pkp = prev_kf.keypoints.get(kpo.id)
+            if pkp is not None:
+                flags |= ts.FL_JOIN
+                kp[j, ts.TK_PREV_UND] = pkp.undistorted_pixel[::-1]
+                kp[j, ts.TK_PREV_BEAR] = pkp.position[:2]
+            kp[j, ts.TK_FLAGS] = flags
+            ids.append(kpo.id)
+
+        misc = np.zeros(48, np.float32)
+        misc[ts.MS_PREV_KF_CW] = prev_kf.cw.reshape(16)
+        misc[ts.MS_WC] = frame.wc.reshape(16)
+        misc[ts.MS_VEL] = self.motion_model.log_rel_t
+        misc[ts.MS_APPLY_5PT] = 1.0 if mm.nb_keyframes > 2 else 0.0
+        misc[ts.MS_HAS_PREV] = (
+            1.0 if self.motion_model.prev_time >= 0 else 0.0
+        )
+        misc[ts.MS_INTRINSICS] = self._intrinsics_np
+        misc[ts.MS_DISTORTION] = self._distortion_np
+
+        self._carry = {
+            "pyr": self.current_pyramid,
+            "kp": upload(kp, self.device),
+            "misc": upload(misc, self.device),
+        }
+        self._slot_ids = ids
+        self._last_dispatch_time = self.motion_model.prev_time
+        self._last_kf_fid = prev_kf.id
+        _t.__exit__(None, None, None)
+
+    def pipeline_dispatch(self, fid: int, image_dev, right_dev,
+                          time: float):
+        p = self.params
+        dt = (
+            0.0 if self._last_dispatch_time < 0
+            else time - self._last_dispatch_time
+        )
+        self._last_dispatch_time = time
+        with TIMERS.stage("fe.pipe.dispatch"):
+            new_carry, per_kp, scalars = ts.track_step(
+                self._carry, image_dev, float(np.float32(dt)),
+                self._ransac_key(2, fid),
+                levels=p.pyramid_levels, window=p.window_size,
+                iters=p.lk_iterations, eps=p.lk_epsilon,
+                eig_thresh=p.lk_eigenvalue_threshold, pad=self._pad,
+                max_fb_distance=p.max_ktl_distance,
+                essential_hypotheses=p.ransac_essential_hypotheses,
+                pnp_hypotheses=p.ransac_pnp_hypotheses,
+                threshold=p.max_reprojection_error,
+                min_active=p.lk_min_active, sigma=p.pyramid_sigma,
+                height=self.current_frame.camera.height,
+                width=self.current_frame.camera.width,
+            )
+        self._carry = new_carry
+        self.inflight.append(InflightFrame(fid, time, image_dev, right_dev,
+                                           per_kp, scalars, new_carry))
+
+    def pipeline_apply(self, rec: InflightFrame, per_kp, scalars,
+                       slam_io=None) -> bool:
+        """Host bookkeeping for an applied frame — the semantics of
+        track_mono_fused (predict + _apply_fused), one frame behind the
+        dispatch. Returns the keyframe decision."""
+        frame = self.current_frame
+        prev_kf = self.map_manager.frames_map[frame.kfid]
+        self._frame_reset_taken = False
+        new_pose = self.motion_model.predict(frame.wc, rec.time)
+        frame.set_wc(new_pose, slam_io)
+        n = len(self._slot_ids)
+        attempted = per_kp[:n, 11] > 0
+        # The 3D mask the DEVICE used for this frame (per_kp col 12): with
+        # the async keyframe path the host's view can lag the device's, and
+        # the removal bookkeeping must follow the device's P3P membership.
+        has_mp = per_kp[:n, 12] > 0
+        with TIMERS.stage("fe.pipe.apply"):
+            return self._apply_fused(
+                (per_kp, scalars), self._slot_ids, attempted,
+                has_mp, frame, prev_kf, rec.time, slam_io,
+            )
+
+    @property
+    def frame_reset_taken(self) -> bool:
+        return self._frame_reset_taken
+
+    def predict_kf(self, fid: int) -> bool:
+        """Will frame `fid` likely be a keyframe? Gates speculative
+        dispatch: applying a predicted-keyframe frame before dispatching
+        the next one avoids a discard + replay. A wrong prediction changes
+        the order of work, never a result."""
+        return fid - self._last_kf_fid >= max(2, self._last_kf_interval)
+
+    def note_kf(self, fid: int):
+        self._last_kf_interval = max(1, fid - self._last_kf_fid)
+        self._last_kf_fid = fid
+
+    def pipeline_discard(self):
+        """Drop speculated dispatches (their carry is stale after a
+        keyframe/reset); return their inputs for replay post-resync."""
+        replay = [
+            (r.fid, r.time, r.image_dev, r.right_dev) for r in self.inflight
+        ]
+        self.inflight.clear()
+        self._carry = None
+        return replay
+
+    def pipeline_stop(self):
+        self.inflight.clear()
+        self._carry = None
+        self._slot_ids = []
+        self._last_dispatch_time = -1.0
+
+    def adopt_pyramid(self, rec: InflightFrame):
+        """Make the applied frame's device pyramid current (keyframe
+        detection/stereo and the next resync read it)."""
+        self.current_pyramid = rec.carry_after["pyr"]
+        self.previous_pyramid = None
+
+    def push_correction(self):
+        """Reconcile the device carry with authoritative host state after
+        an async keyframe's host apply (ops/track_step.py::carry_merge):
+        temporal-DLT promotions, f32/f64 stereo-gate edge flips, map-point
+        culls and BA position updates land here without discarding the
+        in-flight dispatches."""
+        if self._carry is None:
+            return
+        _t = TIMERS.stage("fe.correction")
+        _t.__enter__()
+        frame = self.current_frame
+        mm = self.map_manager
+        cap = self.params.keypoint_capacity
+        prev_kf = mm.frames_map[frame.kfid]
+
+        rows_mp, mp_pos = [], []
+        rows_join, join_und, join_bear = [], [], []
+        rows_live, flag_vals = [], []
+        kps_get = frame.keypoints.get
+        mps_get = mm.map_points.get
+        pkf_get = prev_kf.keypoints.get
+        for j, kpid in enumerate(self._slot_ids):
+            if kpid is None:
+                continue
+            kpo = kps_get(kpid)
+            if kpo is None:
+                self._slot_ids[j] = None
+                continue
+            flags = ts.FL_VALID
+            if kpo.is_3d:
+                mp = mps_get(kpid)
+                if mp is not None:
+                    flags |= ts.FL_HAS_MP
+                    rows_mp.append(j)
+                    mp_pos.append(mp.position)
+            pkp = pkf_get(kpid)
+            if pkp is not None:
+                flags |= ts.FL_JOIN
+                rows_join.append(j)
+                join_und.append(pkp.undistorted_pixel)
+                join_bear.append(pkp.position)
+            rows_live.append(j)
+            flag_vals.append(flags)
+        kp = np.zeros((cap, 10), np.float32)
+        if rows_live:
+            kp[np.asarray(rows_live), ts.TK_FLAGS] = flag_vals
+        if rows_mp:
+            rows_mp = np.asarray(rows_mp)
+            kp[rows_mp, ts.TK_MP] = np.asarray(mp_pos, np.float32)
+        if rows_join:
+            rows_join = np.asarray(rows_join)
+            kp[rows_join, ts.TK_PREV_UND] = np.asarray(
+                join_und, np.float32)[:, ::-1]
+            kp[rows_join, ts.TK_PREV_BEAR] = np.asarray(
+                join_bear, np.float32)[:, :2]
+
+        misc = np.zeros(17, np.float32)
+        misc[:16] = prev_kf.cw.reshape(16)
+        misc[16] = 1.0 if mm.nb_keyframes > 2 else 0.0
+        self._carry = ts.carry_merge(
+            self._carry, upload(kp, self.device), upload(misc, self.device)
+        )
+        _t.__exit__(None, None, None)
+
     # -- P3P + refinement (front_end.jl:132-219) ----------------------------
 
     def compute_pose(self, slam_io=None) -> bool:
@@ -637,6 +905,7 @@ class FrontEnd:
     # -- reset (front_end.jl:488-512) ----------------------------------------
 
     def reset_frame(self):
+        self._frame_reset_taken = True
         for kpid in list(self.current_frame.keypoints.keys()):
             self.map_manager.remove_obs_from_current_frame(kpid)
         self.current_frame.keypoints.clear()
@@ -652,10 +921,14 @@ class FrontEnd:
         self.current_pyramid = None
         self.motion_model.reset()
         self.needs_bootstrap = True
+        self.pipeline_stop()
 
-    def _ransac_key(self, salt: int) -> tuple:
+    def _ransac_key(self, salt: int, fid: Optional[int] = None) -> tuple:
         """Raw threefry key (k1, k2) = (0, seed): jax.random.PRNGKey(seed)
-        under the default no-x64 config (the JAX package's host twin)."""
-        fid = self.current_frame.id
+        under the default no-x64 config (the JAX package's host twin).
+        Keyed on `fid`, the frame the step runs on: the pipelined dispatch
+        passes its own frame id, which runs ahead of current_frame.id."""
+        if fid is None:
+            fid = self.current_frame.id
         seed = ((self.params.seed * 1000003 + fid) * 7 + salt) & 0xFFFFFFFF
         return (0, seed)

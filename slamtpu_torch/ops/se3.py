@@ -166,3 +166,13 @@ def rot_to_zyx(R):
     )
     c = torch.atan2(R[..., 2, 1], R[..., 2, 2])
     return torch.stack([a, b, c], dim=-1)
+
+
+def pose_to_theta(T):
+    """(..., 4, 4) cw pose -> (..., 6) (euler_zyx, t), the BA / PnP form."""
+    return torch.cat([rot_to_zyx(T[..., :3, :3]), T[..., :3, 3]], dim=-1)
+
+
+def theta_to_pose(theta):
+    """(..., 6) (euler_zyx, t) -> (..., 4, 4) pose."""
+    return rt_to_4x4(rot_zyx(theta[..., :3]), theta[..., 3:])

@@ -6,11 +6,17 @@ not have, so run these without it:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda -q
 """
+import numpy as np
 import pytest
 import torch
 
+from slamtpu import hostmath as hm
+from slamtpu.datasets.synthetic import make_scene
 from slamtpu_torch.ops import detect_suppress as ds
+from slamtpu_torch.ops import keyframe_step as ks
+from slamtpu_torch.ops import track_step as ts
 from slamtpu_torch.ops import window_gather as wg
+from slamtpu_torch.ops.image import lk_pyramid_impl
 
 pytestmark = [
     pytest.mark.cuda,
@@ -73,3 +79,81 @@ def test_suppress_and_nms_bit_exact(h, w, n, radius):
     ref = ds.suppress_and_nms_plain(resp, yx, valid, radius=radius,
                                     min_response=1e-4)
     assert torch.equal(out, ref)
+
+
+def _keyframe_inputs(dev, cap=1024, n_old=300, seed=3):
+    """A keyframe program call at KITTI width: the left pyramid of a city
+    scene frame in the carry, `n_old` live 2D slots (stereo-promotion
+    candidates) and the rest of the slots free for new detections."""
+    scene = make_scene(n_frames=1, height=376, width=1241, n_points=6000,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    left, right = scene.frame(0)
+    pad = 17
+    rng = np.random.default_rng(seed)
+    kp = np.zeros((cap, 10), np.float32)
+    px = np.stack([rng.uniform(20, 356, n_old), rng.uniform(20, 1221, n_old)],
+                  axis=-1)
+    kp[:n_old, ts.TK_PX] = px
+    kp[:n_old, ts.TK_FLAGS] = ts.FL_VALID
+    misc = np.zeros(48, np.float32)
+    misc[ts.MS_PREV_KF_CW] = np.eye(4).reshape(16)
+    misc[ts.MS_WC] = np.eye(4).reshape(16)
+    misc[ts.MS_INTRINSICS] = scene.camera.intrinsics_array()
+    misc[ts.MS_DISTORTION] = scene.camera.distortion_array()
+
+    state = np.zeros((ks.state2_rows(cap), 16), np.float32)
+    state[:cap, ks.KS2_GROUP] = -1.0
+    state[:n_old, ks.KS2_UND] = px
+    state[:n_old, ks.KS2_FLAGS] = ks.K2_TRICAND
+    free = np.full(cap, cap, np.int64)
+    free[:cap - n_old] = np.arange(n_old, cap)
+    state[:cap, ks.KS2_FREE] = free
+    K4l = hm.mat3_to_4x4(scene.camera.K)
+    rc = scene.right_camera
+    m = np.zeros(ks.KS2_MISC_ROWS * 16, np.float32)
+    m[ks.M2_P1] = K4l.reshape(16)
+    m[ks.M2_P2R] = (hm.mat3_to_4x4(rc.K) @ rc.Ti0).reshape(16)
+    m[ks.M2_INTR_R] = rc.intrinsics_array()
+    m[ks.M2_DIST_R] = rc.distortion_array()
+    m[ks.M2_INTR_L] = scene.camera.intrinsics_array()
+    m[ks.M2_DIST_L] = scene.camera.distortion_array()
+    m[ks.M2_CELL_DETECT] = 2
+    m[ks.M2_NB_DETECT] = 1000
+    m[ks.M2_APPLY5PT] = 1.0
+    m[ks.M2_NFREE] = cap - n_old
+    m[ks.M2_TI0] = rc.Ti0.reshape(16)
+    state[cap + ks.N_GROUPS:] = m.reshape(ks.KS2_MISC_ROWS, 16)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    carry = {"pyr": lk_pyramid_impl(t(left.astype(np.float32)), levels=3,
+                                    pad=pad),
+             "kp": t(kp), "misc": t(misc)}
+    kw = dict(levels=3, window=9, iters=30, eps=1e-2, eig_thresh=1e-4,
+              pad=pad, max_fb_distance=1.0, sigma=1.0, min_active=16,
+              cell_size=35, radius=17, min_response=1e-4, height=376,
+              width=1241, threshold=3.0)
+    return carry, t(right.astype(np.float32)), t(state), kw
+
+
+def test_keyframe_program_detections_match_plain_k2(monkeypatch):
+    """The keyframe program's K2 call in place: its detections with the
+    CUDA kernel equal, bit for bit, the same call with the plain version."""
+    carry, right, state, kw = _keyframe_inputs("cuda")
+    before = ds.suppress_and_nms.launches
+    _, per_slot, n_new = ks.keyframe_step_carry(carry, right, state, **kw)
+    torch.cuda.synchronize()
+    assert ds.suppress_and_nms.launches == before + 1
+
+    def plain(resp, yx, occ_valid, *, radius, min_response):
+        return ds.suppress_and_nms_plain(resp, yx, occ_valid, radius=radius,
+                                         min_response=min_response)
+
+    monkeypatch.setattr(ks, "suppress_and_nms", plain)
+    _, per_slot_p, n_new_p = ks.keyframe_step_carry(carry, right, state,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert ds.suppress_and_nms.launches == before + 1
+    assert int(n_new) == int(n_new_p) > 0
+    assert torch.equal(per_slot[:, 0:2], per_slot_p[:, 0:2])
