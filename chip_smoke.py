@@ -5,29 +5,40 @@
 Phases, one line each; any failure raises and exits nonzero:
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: nvcc builds slamtpu_torch/csrc/*.cu into build/slamtpu_torch/;
-  3. K1 (window gather) against its plain PyTorch version at the LK main
-     path's shapes — must be equal — with median CUDA-event times of both;
-  4. K2 (suppression + NMS) likewise at the detection shapes — bit-exact;
+  3. K1 (window gather) against its plain PyTorch version at the LK level-0
+     shapes — must be equal — with median CUDA-event times of both and of
+     the one advanced-indexing call that computes the same gather;
+  4. K2 (suppression + NMS, one launch) likewise at the detection shapes —
+     bit-exact;
+  4b. the LK level kernel against its plain version on a real pyramid pair
+     (two consecutive 376x1241 city-scene frames) at the main path's
+     level-0 and level-3 shapes, N = 1024: ok masks agree on >= 99.5% of
+     the points alive at entry, flows of points ok in both within 1e-3 px;
   5. the classic path: a 30-frame 376x1241 synthetic stereo city scene
      through slamtpu_torch.SlamManager(device="cuda") with
      Params(stereo=True, pipelined=False, do_local_bundle_adjustment=False);
-     asserts no reset, 6 to 12 keyframes, both kernels launched, metric
-     ATE <= 0.06 m (the JAX package's CPU run of this scene and Params:
-     9 keyframes, 0.0205 m);
+     asserts no reset, 6 to 12 keyframes, the level kernel and K2 launched,
+     standalone K1 not launched, metric ATE <= 0.06 m (the JAX package's
+     CPU run of this scene and Params: 9 keyframes, 0.0205 m);
   6. the default path: bench.py's 60-frame 376x1241 city scene with
      Params(stereo=True) — pipelined tracking, the carry-chained async
-     keyframe program, deferred local BA; asserts no reset, a finite
-     60-pose trajectory, > 40 pipelined dispatches, >= 3 async keyframes,
-     >= 2 BA results applied, K2 launched at least once per keyframe
-     program, K1 launched, 10 to 14 keyframes and metric ATE <= 0.0709 m
-     (the JAX package's CPU run of this scene and Params: 12 keyframes,
-     0.03044 m; the bounds are +-2 keyframes and 2x + 0.01 m). Prints the
-     FPS after 15 warm-up frames, the stage timers and the device time of
-     one BA solve at the run's padded shape.
+     keyframe program, deferred local BA — with every tracked frame's LK
+     cascade run under torch.cuda.set_sync_debug_mode("error"); asserts no
+     reset, a finite 60-pose trajectory, > 40 pipelined dispatches, >= 3
+     async keyframes, >= 2 BA results applied, K2 launched at least once per
+     keyframe program, the level kernel launched, standalone K1 not
+     launched, 10 to 14 keyframes and metric ATE <= 0.0709 m (the JAX
+     package's CPU run of this scene and Params: 12 keyframes, 0.03044 m;
+     the bounds are +-2 keyframes and 2x + 0.01 m). Prints the FPS after 15
+     warm-up frames, the stage timers and the device time of one BA solve
+     at the run's padded shape.
 Each path's kernel counts are set to 0 just before it runs and read just
-after. Then one JSON line with per-kernel numbers and, last, the JSON
-status line. Without a CUDA device it exits nonzero before printing any
-result.
+after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
+time around one wrapper call; device_ms: the kernel's own device time from
+torch.profiler; bound_ms: the larger of the bytes the function must move
+over 3.35 TB/s and its float32 operations over 67 TFLOP/s, from this run's
+inputs, each distinct input byte counted once) and, last, the JSON status
+line. Without a CUDA device it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -35,6 +46,11 @@ import json
 import subprocess
 import sys
 import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def _log(phase, **kw):
@@ -60,6 +76,54 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time (ms) of one launch of the CUDA kernel whose name
+    holds `kernel`, from torch.profiler over `reps` calls of fn; None when
+    the profiler reports no device time for it. Unlike _median_ms, this
+    leaves out the wrapper's host work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = count = 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += getattr(evt, "self_device_time_total",
+                                getattr(evt, "self_cuda_time_total", 0))
+            count += evt.count
+    return total_us / count / 1e3 if count and total_us else None
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _covered_pixels(hw, starts, t):
+    """Distinct pixels of an (H, W) map that the t x t windows at `starts`
+    (N, 2), already clamped into the map, cover: a coverage mask on the
+    card, so overlapping windows count once."""
+    import torch
+
+    mask = torch.zeros(hw, dtype=torch.bool, device=starts.device)
+    steps = torch.arange(t, device=starts.device)
+    ys = starts[:, 0:1].long() + steps
+    xs = starts[:, 1:2].long() + steps
+    mask[ys[:, :, None], xs[:, None, :]] = True
+    return int(mask.sum())
+
+
+def _bound(nbytes: float, flops: float = 0.0):
+    """(bound_ms, bound_by) for work that moves nbytes and does flops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_k1(dev):
     """Window gather at the level-0 LK shapes: 6-map stack, T = 19, and the
     image patch, P = 32, N = 1024 points each."""
@@ -69,7 +133,7 @@ def phase_k1(dev):
     gen = torch.Generator(device="cpu").manual_seed(1)
     n, hp, wp = 1024, 376 + 34, 1241 + 34
     err = 0.0
-    ms = plain_ms = 0.0
+    ms = plain_ms = lib_ms = bound_ms = dev_ms = 0.0
     for c, t in ((6, 19), (1, 32)):
         src = torch.rand((c, hp, wp), generator=gen).to(dev)
         start = torch.stack([
@@ -83,16 +147,37 @@ def phase_k1(dev):
             raise AssertionError(f"K1 differs from its plain version "
                                  f"at C={c}, T={t}")
         err = max(err, float((out - ref).abs().max()))
+        # The one library call: an advanced-indexing gather at the clamped
+        # starts (made outside the timed call).
+        ys = start[:, 0:1].long() + torch.arange(t, device=dev)
+        xs = start[:, 1:2].long() + torch.arange(t, device=dev)
+        lib = src[:, ys[:, :, None], xs[:, None, :]]
+        if not torch.equal(lib.permute(1, 0, 2, 3), out):
+            raise AssertionError("the advanced-indexing call differs")
         k_ms = _median_ms(lambda: wg.gather_windows_cuda(src, start, t, t))
         p_ms = _median_ms(lambda: wg.gather_windows_plain(src, start, t, t))
+        l_ms = _median_ms(lambda: src[:, ys[:, :, None], xs[:, None, :]])
+        d_ms = _device_ms(lambda: wg.gather_windows_cuda(src, start, t, t),
+                          "window_gather_kernel")
+        # Each covered input pixel read once, each window written once.
+        covered = _covered_pixels((hp, wp), start, t)
+        b_ms, _ = _bound(4 * c * covered + 4 * n * c * t * t + 8 * n)
         _log("k1", shape=f"({c},{hp},{wp})", window=t, n=n, equal=True,
-             ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+             ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
+             library_ms=f"{l_ms:.4f}", bound_ms=f"{b_ms:.6f}")
+        dev_ms = None if d_ms is None or dev_ms is None else dev_ms + d_ms
         ms += k_ms
         plain_ms += p_ms
+        lib_ms += l_ms
+        bound_ms += b_ms
     return {"name": "window_gather", "route": "cuda",
             "source": "slamtpu_torch/csrc/window_gather.cu",
             "replaces": "slamtpu/ops/dma_gather.py:47",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms,
+            "note": "sums over the stack (C=6, T=19) and patch (C=1, P=32) "
+                    "gathers at N=1024"}
 
 
 def phase_k2(dev):
@@ -108,22 +193,178 @@ def phase_k2(dev):
                      dim=-1).to(torch.int32).to(dev)
     valid = (torch.rand((n,), generator=gen) < 0.7).to(dev)
     kw = dict(radius=r, min_response=min_resp)
+    before = ds.suppress_and_nms.launches
     out = ds.suppress_and_nms_cuda(resp, yx, valid, **kw)
     ref = ds.suppress_and_nms_plain(resp, yx, valid, **kw)
     torch.cuda.synchronize()
+    if ds.suppress_and_nms.launches != before + 1:
+        raise AssertionError("K2 is not one launch")
     if not torch.equal(out, ref):
         raise AssertionError("K2 is not bit-exact with its plain version")
     k_ms = _median_ms(lambda: ds.suppress_and_nms_cuda(resp, yx, valid, **kw))
     p_ms = _median_ms(lambda: ds.suppress_and_nms_plain(resp, yx, valid,
                                                          **kw))
+    d_ms = _device_ms(lambda: ds.suppress_and_nms_cuda(resp, yx, valid,
+                                                        **kw),
+                      "suppress_nms_kernel")
+    b_ms, b_by = _bound(2 * 4 * h * w + 9 * n)
     _log("k2", shape=f"({h},{w})", n=n, valid=int(valid.sum()), radius=r,
-         bit_exact=True, kept=int((out > 0).sum()), ms=f"{k_ms:.4f}",
-         plain_ms=f"{p_ms:.4f}")
+         bit_exact=True, launches_per_call=1, kept=int((out > 0).sum()),
+         ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
+         bound_ms=f"{b_ms:.6f}", library_ms="null")
     return {"name": "suppress_nms", "route": "cuda",
             "source": "slamtpu_torch/csrc/suppress_nms.cu",
             "replaces": "slamtpu/ops/detect_pallas.py:55",
             "max_abs_err": float((out - ref).abs().max()), "ms": k_ms,
-            "plain_ms": p_ms}
+            "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call zeroes squares around "
+                            "points and then applies 3x3 NMS + threshold"}
+
+
+def phase_lk_level(dev):
+    """The LK level kernel at the main path's level-0 and level-3 shapes
+    (window 9, 30 iterations, lk_min_active 16, N = 1024) on a real pyramid
+    pair."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params
+    from slamtpu_torch.datasets.synthetic import make_scene
+    from slamtpu_torch.ops import lucas_kanade as lk
+    from slamtpu_torch.ops.image import lk_pyramid_impl, pyramid_level_shape
+
+    p = Params(stereo=True)
+    pad = lk.lk_pad(p.window_size)
+    scene = make_scene(n_frames=2, height=376, width=1241, n_points=6000,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    pyrs = [lk_pyramid_impl(
+        torch.from_numpy(scene.frame(i)[0].astype(np.float32)).to(dev),
+        levels=p.pyramid_levels, pad=pad) for i in range(2)]
+    n = p.keypoint_capacity
+    T = 2 * p.window_size + 1
+    P = T + 1 + 2 * lk.LK_PATCH_MARGIN
+    rows = []
+    for level in (0, p.pyramid_levels):
+        rng = np.random.default_rng(10 + level)
+        px = np.stack([rng.uniform(0, 375, n), rng.uniform(0, 1240, n)], -1)
+        p_lvl = torch.from_numpy(
+            np.floor(px / 2.0 ** level).astype(np.int32)).to(dev)
+        flow = torch.from_numpy(
+            rng.normal(0.0, 1.5, (n, 2)).astype(np.float32)).to(dev)
+        ok = torch.from_numpy(rng.uniform(size=n) < 0.9).to(dev)
+        d1, d2 = pyrs[0][level], pyrs[1][level]
+        kw = dict(hw=pyramid_level_shape(d1, pad), window=p.window_size,
+                  iters=p.lk_iterations, eps=p.lk_epsilon,
+                  eig_thresh=p.lk_eigenvalue_threshold, pad=pad,
+                  min_active=p.lk_min_active)
+        flow_k, ok_k, counts = lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
+                                                return_counts=True, **kw)
+        flow_p, ok_p = lk.lk_level_plain(d1, d2, p_lvl, flow, ok, **kw)
+        torch.cuda.synchronize()
+        alive = ok.cpu().numpy()
+        ok_k_np, ok_p_np = ok_k.cpu().numpy(), ok_p.cpu().numpy()
+        agree = float((ok_k_np == ok_p_np)[alive].mean())
+        both = ok_k_np & ok_p_np
+        err = float(np.abs(flow_k.cpu().numpy()[both]
+                           - flow_p.cpu().numpy()[both]).max())
+        if ok_k_np[~alive].any() or not agree >= 0.995 or not err <= 1e-3:
+            raise AssertionError(f"LK level kernel differs from its plain "
+                                 f"version at level {level}: ok agreement "
+                                 f"{agree:.4f}, flow error {err:.2e} px")
+        # Work this run's data needs: the distinct pixels under the stack
+        # windows and patches of the points alive at entry (starts clamped
+        # as the kernel clamps them), and the solver's point-iterations the
+        # kernel counted. A check that ran has nonzero arrival bits.
+        counts = counts.cpu().numpy()
+        arrived = counts & ((1 << lk.LK_LEVEL_ARRIVE_BITS) - 1)
+        its = int((arrived > 0).sum()) - 1
+        point_iters = int((counts[:its] >> lk.LK_LEVEL_ARRIVE_BITS).sum())
+        n_live = int(alive.sum())
+        hp, wp = d2["img"].shape
+        h, w = kw["hw"]
+        win0 = torch.stack([
+            torch.clamp(p_lvl[ok, 0] - p.window_size + pad, 0, hp - T),
+            torch.clamp(p_lvl[ok, 1] - p.window_size + pad, 0, wp - T),
+        ], dim=-1)
+        p_f = p_lvl[ok].to(torch.float32)
+        q0 = p_f + flow[ok]
+        inb = ((q0[:, 0] >= 0) & (q0[:, 0] <= h - 1) & (q0[:, 1] >= 0)
+               & (q0[:, 1] <= w - 1))
+        q0_safe = torch.where(inb[:, None], q0, p_f)
+        base = (torch.floor(q0_safe).to(torch.int32) - p.window_size
+                - lk.LK_PATCH_MARGIN + pad)
+        patch0 = torch.stack([torch.clamp(base[:, 0], 0, hp - P),
+                              torch.clamp(base[:, 1], 0, wp - P)], dim=-1)
+        nbytes = (4 * 6 * _covered_pixels((hp, wp), win0, T)
+                  + 4 * _covered_pixels((hp, wp), patch0, P)
+                  + n * (8 + 8 + 1) + n * (8 + 1))
+        flops = 13 * T * T * point_iters + 7 * T * T * n_live
+        b_ms, b_by = _bound(nbytes, flops)
+        k_ms = _median_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
+                                                    **kw))
+        p_ms = _median_ms(lambda: lk.lk_level_plain(d1, d2, p_lvl, flow, ok,
+                                                     **kw), reps=10,
+                          warmup=2)
+        d_ms = _device_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
+                                                   **kw), "lk_level_kernel")
+        _log("lk_level", level=level, shape=tuple(d1["stack"].shape), n=n,
+             alive=n_live, ok_kernel=int(ok_k_np.sum()),
+             ok_plain=int(ok_p_np.sum()), ok_agreement=f"{agree:.4f}",
+             max_flow_err_px=f"{err:.2e}", iterations=its,
+             point_iterations=point_iters, ms=f"{k_ms:.4f}",
+             device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
+             bound_ms=f"{b_ms:.6f}", bound_by=b_by, library_ms="null")
+        rows.append(dict(level=level, ms=k_ms, device_ms=d_ms,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err, ok_agreement=agree,
+                         iterations=its))
+    return {"name": "lk_level", "route": "cuda",
+            "source": "slamtpu_torch/csrc/lk_level.cu",
+            "replaces": "slamtpu/ops/dma_gather.py:47",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "device_ms": (None if any(r["device_ms"] is None for r in rows)
+                          else sum(r["device_ms"] for r in rows)),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": rows[0]["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call runs an iterative "
+                            "Lucas-Kanade level solve",
+            "note": "sums over level 0 and level 3 at N=1024; on the main "
+                    "path it replaces K1's gathers, fused with the level "
+                    "solve",
+            "per_level": rows}
+
+
+def _reset_counts():
+    from slamtpu_torch.ops.detect_suppress import suppress_and_nms
+    from slamtpu_torch.ops.lucas_kanade import lk_level
+    from slamtpu_torch.ops.window_gather import gather_windows
+
+    gather_windows.launches = 0
+    suppress_and_nms.launches = 0
+    lk_level.launches = 0
+
+
+def _read_counts():
+    from slamtpu_torch.ops.detect_suppress import suppress_and_nms
+    from slamtpu_torch.ops.lucas_kanade import lk_level
+    from slamtpu_torch.ops.window_gather import gather_windows
+
+    return {"window_gather": gather_windows.launches,
+            "lk_level": lk_level.launches,
+            "suppress_nms": suppress_and_nms.launches}
+
+
+def _check_path_kernels(path, launches):
+    if launches["lk_level"] <= 0 or launches["suppress_nms"] <= 0:
+        raise AssertionError(f"a kernel of the {path} path was never "
+                             f"launched: {launches}")
+    if launches["window_gather"] != 0:
+        raise AssertionError(f"standalone K1 launched on the {path} path: "
+                             f"{launches}")
 
 
 def phase_main_path(dev):
@@ -131,12 +372,10 @@ def phase_main_path(dev):
     import numpy as np
     import torch
 
-    from slamtpu.datasets.synthetic import make_scene
-    from slamtpu.eval.ate import ate_rmse
-    from slamtpu.utils.profiling import TIMERS
     from slamtpu_torch import Params, ReplaySaver, SlamManager
-    from slamtpu_torch.ops.detect_suppress import suppress_and_nms
-    from slamtpu_torch.ops.window_gather import gather_windows
+    from slamtpu_torch.datasets.synthetic import make_scene
+    from slamtpu_torch.eval.ate import ate_rmse
+    from slamtpu_torch.utils.profiling import TIMERS
 
     scene = make_scene(n_frames=30, height=376, width=1241, n_points=6000,
                        stereo=True, baseline=0.54, seed=7, layout="city")
@@ -147,8 +386,7 @@ def phase_main_path(dev):
     sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
                      slam_io=saver, device=dev)
     TIMERS.reset()
-    gather_windows.launches = 0
-    suppress_and_nms.launches = 0
+    _reset_counts()
     warm = 5
     t_warm = None
     t0 = time.perf_counter()
@@ -160,8 +398,7 @@ def phase_main_path(dev):
     sm.finish()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = {"window_gather": gather_windows.launches,
-                "suppress_nms": suppress_and_nms.launches}
+    launches = _read_counts()
 
     est = saver.trajectory_xyz().astype(np.float64)
     gt = np.stack([p[:3, 3] for p in scene.poses_wc])
@@ -185,8 +422,7 @@ def phase_main_path(dev):
         raise AssertionError(f"{sm.n_resets} reset(s) on the main path")
     if not 6 <= n_kf <= 12:
         raise AssertionError(f"{n_kf} keyframes, expected 6 to 12")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was never launched: {launches}")
+    _check_path_kernels("classic", launches)
     if not ate <= 0.06:
         raise AssertionError(f"metric ATE {ate:.4f} m > 0.06 m")
     return launches
@@ -202,14 +438,13 @@ def phase_default_path(dev):
     import numpy as np
     import torch
 
-    from slamtpu.datasets.synthetic import make_scene
-    from slamtpu.eval.ate import ate_rmse
-    from slamtpu.utils.profiling import TIMERS
     from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.datasets.synthetic import make_scene
+    from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.models import estimator as est_mod
-    from slamtpu_torch.ops.detect_suppress import suppress_and_nms
+    from slamtpu_torch.ops import frontend_step as fs_mod
     from slamtpu_torch.ops.keyframe_step import keyframe_step_carry
-    from slamtpu_torch.ops.window_gather import gather_windows
+    from slamtpu_torch.utils.profiling import TIMERS
 
     scene = make_scene(n_frames=60, height=376, width=1241, n_points=6000,
                        stereo=True, baseline=0.54, seed=7, layout="city")
@@ -227,10 +462,24 @@ def phase_default_path(dev):
         ba_calls.append((buf, kw))
         return ba_orig(buf, **kw)
 
+    # Every tracked frame's LK cascade runs with synchronizing calls turned
+    # into errors: the cascade must issue no host sync.
+    cascade_orig = fs_mod.fb_cascade
+    no_sync_cascades = []
+
+    def cascade_no_sync(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = cascade_orig(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        no_sync_cascades.append(1)
+        return out
+
     est_mod.local_bundle_adjustment_packed = ba_spy
+    fs_mod.fb_cascade = cascade_no_sync
     TIMERS.reset()
-    gather_windows.launches = 0
-    suppress_and_nms.launches = 0
+    _reset_counts()
     keyframe_step_carry.launches = 0
     warm = 15
     t_warm = None
@@ -245,9 +494,9 @@ def phase_default_path(dev):
         torch.cuda.synchronize()
     finally:
         est_mod.local_bundle_adjustment_packed = ba_orig
+        fs_mod.fb_cascade = cascade_orig
     t1 = time.perf_counter()
-    launches = {"window_gather": gather_windows.launches,
-                "suppress_nms": suppress_and_nms.launches}
+    launches = _read_counts()
     kf_programs = keyframe_step_carry.launches
 
     est = saver.trajectory_xyz().astype(np.float64)
@@ -275,6 +524,7 @@ def phase_default_path(dev):
          async_keyframes=calls("mp.kf_async.dispatch"),
          keyframe_programs=kf_programs, ba_solves=calls("es.ba"),
          ba_applied=calls("es.ba_apply"),
+         cascades_without_sync=len(no_sync_cascades),
          ba_device_ms=f"{ba_ms:.3f}" if ba_ms is not None else "none",
          ba_shape=(f"P={ba_calls[-1][1]['P']},X={ba_calls[-1][1]['X']},"
                    f"O={ba_calls[-1][1]['O']}") if ba_calls else "none",
@@ -299,8 +549,11 @@ def phase_default_path(dev):
     if not (kf_programs >= 3 and launches["suppress_nms"] >= kf_programs):
         raise AssertionError(f"K2 launched {launches['suppress_nms']} times "
                              f"for {kf_programs} keyframe programs")
-    if launches["window_gather"] <= 0:
-        raise AssertionError("K1 was never launched on the default path")
+    if len(no_sync_cascades) < calls("fe.pipe.dispatch"):
+        raise AssertionError(f"{len(no_sync_cascades)} LK cascades ran "
+                             "under sync debug mode for "
+                             f"{calls('fe.pipe.dispatch')} dispatches")
+    _check_path_kernels("default", launches)
     if abs(n_kf - JAX_DEFAULT_KFS) > 2:
         raise AssertionError(f"{n_kf} keyframes, expected "
                              f"{JAX_DEFAULT_KFS} +- 2")
@@ -337,14 +590,16 @@ def main() -> int:
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
+    lk = phase_lk_level(dev)
     classic = phase_main_path(dev)
     default = phase_default_path(dev)
-    for entry, kernel in ((k1, "window_gather"), (k2, "suppress_nms")):
+    for entry in (k1, k2, lk):
+        kernel = entry["name"]
         entry["launches"] = default[kernel]
         entry["launches_by_path"] = {"classic": classic[kernel],
                                      "default": default[kernel]}
 
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, lk]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,20 +1,41 @@
-"""Moving the device state that passes between calls across the two packages.
+"""Moving configuration and device state across the two packages.
 
-The system has no learned weights; what carries across is the device state
-one call hands the next: LK pyramids (a tuple of per-level dicts of arrays,
+The system has no learned weights; what carries across is its
+configuration (`Params`, `Camera`) and the device state one call hands the
+next: LK pyramids (a tuple of per-level dicts of arrays,
 slamtpu/ops/image.py layout), the packed `state` uploads and the packed
-`per_kp` / `scalars` fetches. These helpers take the JAX package's arrays
-after `np.asarray` and return tensors on the requested device (and back),
-so a test can feed the JAX package's own pyramid or packed state into the
-port.
+`per_kp` / `scalars` fetches. These helpers take the JAX package's objects
+or arrays (after `np.asarray`) and return the port's, so a test can feed
+the JAX package's own configuration, pyramid or packed state into the
+port. They read the JAX objects field by field and import nothing of the
+JAX package.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from .camera import Camera
+from .params import Params
+
 # Channel order of the padded (6, Hp, Wp) per-level stack.
 STACK_KEYS = ("img", "Iy", "Ix", "Gyy", "Gxx", "Gyx")
+
+
+def params_from_jax(p) -> Params:
+    """A JAX-package `Params` -> the port's `Params`, field for field."""
+    return Params(**{f.name: getattr(p, f.name)
+                     for f in dataclasses.fields(Params)})
+
+
+def camera_from_jax(c) -> Camera:
+    """A JAX-package `Camera` -> the port's `Camera` (same intrinsics,
+    distortion and stereo extrinsics `Ti0`)."""
+    kw = {f.name: getattr(c, f.name) for f in dataclasses.fields(Camera)}
+    kw["Ti0"] = np.array(c.Ti0, dtype=np.float64)
+    return Camera(**kw)
 
 
 def tensor_from_numpy(arr, device, dtype=None) -> torch.Tensor:

@@ -1,101 +1,126 @@
-// Occupancy suppression + 3x3 NMS + threshold of a Shi-Tomasi response map.
+// Occupancy suppression + 3x3 NMS + threshold of a Shi-Tomasi response map,
+// in one tiled pass.
 //
 // Replaces the TPU kernel slamtpu/ops/detect_pallas.py::_detect_kernel
 // (launched by suppress_and_nms). In order, as there:
-//   1. rasterize occupancy at the valid points, x-dilated to [x - r, x + r];
-//   2. y-dilate it over [y - r, y + r], completing the exact (2r+1)^2
-//      Chebyshev square, and zero the response inside it — suppression
-//      comes BEFORE NMS (suppressing after NMS leaves maxima next to tracked
+//   1. zero the response inside the (2r+1)^2 Chebyshev square (clipped to
+//      the image) around every valid in-image point — suppression comes
+//      BEFORE NMS (suppressing after NMS leaves maxima next to tracked
 //      points and measurably hurt trajectory accuracy in the JAX package);
-//   3. 3x3 NMS with -inf outside the image, keeping resp >= pooled (ties
+//   2. 3x3 NMS with -inf outside the image, keeping resp >= pooled (ties
 //      survive), then keep values > min_response.
 // Only max and compare are used, so the result is bit-exact with the plain
 // PyTorch version in slamtpu_torch/ops/detect_suppress.py.
 //
-// What bounds it on the H100: bytes and launches. At 376 x 1241 the map is
-// 1.9 MB of float32; pass 2 reads 2r+1 = 35 occupancy bytes per pixel, but
-// neighbouring threads share them through L1/L2, so each pass is a few
-// microseconds of traffic. Three launches on one stream (the TPU kernel's
-// single VMEM-resident pass has no counterpart without a shared-memory
-// tile with dilation + NMS halos, which is later work).
+// What bounds it on the H100: bytes. At 376 x 1241 the map is 1.87 MB of
+// float32 read once and 1.87 MB written once (plus 12 bytes a point):
+// ~1.1 us at 3.35 TB/s, so one launch is most of its time.
 //
-// Design: pass 1 is one thread per point and writes only 1s, so the
-// overlapping stores of neighbouring points need no atomics. Passes 2 and 3
-// are one thread per pixel, x fastest, so rows are read coalesced.
+// Design: one block per kTileH x kTileW output tile. The block loads its
+// tile with a 1-pixel halo into shared memory (-inf outside the image),
+// scans the N points (blockDim.x at a time) and compacts into shared memory
+// those whose square meets the halo'd tile (at ~700 valid points on
+// 376 x 1241 with r = 17, about a dozen a tile), zeroes every tile pixel
+// that lies in one of their squares (each thread tests its pixels against
+// the short list), then applies NMS and the threshold and writes the tile.
+// No scratch map, no memset, no atomics outside shared memory. The hit list
+// holds one chunk of kMaxHits points at a time, so any N is taken in
+// chunks.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void rasterize_kernel(const int32_t* __restrict__ yx,
-                                 const uint8_t* __restrict__ valid,
-                                 uint8_t* __restrict__ occ, int N, int H,
-                                 int W, int r) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N || !valid[i]) return;
-  const int y = yx[2 * i];
-  const int x = yx[2 * i + 1];
-  if (y < 0 || y >= H || x < 0 || x >= W) return;
-  const int lo = max(x - r, 0);
-  const int hi = min(x + r, W - 1);
-  uint8_t* row = occ + static_cast<int64_t>(y) * W;
-  for (int xx = lo; xx <= hi; ++xx) row[xx] = 1;
-}
+constexpr int kTileH = 16;
+constexpr int kTileW = 128;
+constexpr int kThreads = 256;
+constexpr int kMaxHits = 1024;
 
-__global__ void dilate_suppress_kernel(const float* __restrict__ resp,
-                                       const uint8_t* __restrict__ occ,
-                                       float* __restrict__ sup, int H, int W,
-                                       int r) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= W) return;
-  const int lo = max(y - r, 0);
-  const int hi = min(y + r, H - 1);
-  bool hit = false;
-  for (int yy = lo; yy <= hi && !hit; ++yy) {
-    hit = occ[static_cast<int64_t>(yy) * W + x] != 0;
+__global__ void __launch_bounds__(kThreads)
+suppress_nms_kernel(const float* __restrict__ resp,
+                    const int32_t* __restrict__ yx,
+                    const uint8_t* __restrict__ valid,
+                    float* __restrict__ out, int H, int W, int N, int r,
+                    float min_response) {
+  __shared__ float tile[kTileH + 2][kTileW + 2];
+  __shared__ int2 hits[kMaxHits];
+  __shared__ int n_hits;
+
+  const int ty0 = blockIdx.y * kTileH;
+  const int tx0 = blockIdx.x * kTileW;
+  // The halo'd tile covers rows [ylo, yhi] and columns [xlo, xhi].
+  const int ylo = ty0 - 1, yhi = ty0 + kTileH;
+  const int xlo = tx0 - 1, xhi = tx0 + kTileW;
+  for (int k = threadIdx.x; k < (kTileH + 2) * (kTileW + 2);
+       k += blockDim.x) {
+    const int ly = k / (kTileW + 2);
+    const int lx = k - ly * (kTileW + 2);
+    const int y = ylo + ly, x = xlo + lx;
+    tile[ly][lx] = (y >= 0 && y < H && x >= 0 && x < W)
+                       ? resp[static_cast<int64_t>(y) * W + x]
+                       : -INFINITY;
   }
-  const int64_t p = static_cast<int64_t>(y) * W + x;
-  sup[p] = hit ? 0.0f : resp[p];
-}
 
-__global__ void nms_kernel(const float* __restrict__ sup,
-                           float* __restrict__ out, int H, int W,
-                           float min_response) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= W) return;
-  const int64_t p = static_cast<int64_t>(y) * W + x;
-  const float v = sup[p];
-  float pooled = -INFINITY;
-  for (int dy = -1; dy <= 1; ++dy) {
-    const int yy = y + dy;
-    if (yy < 0 || yy >= H) continue;
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int xx = x + dx;
-      if (xx < 0 || xx >= W) continue;
-      pooled = fmaxf(pooled, sup[static_cast<int64_t>(yy) * W + xx]);
+  for (int c0 = 0; c0 < N; c0 += kMaxHits) {
+    if (threadIdx.x == 0) n_hits = 0;
+    __syncthreads();
+    const int c1 = min(N, c0 + kMaxHits);
+    for (int i = c0 + threadIdx.x; i < c1; i += blockDim.x) {
+      if (!valid[i]) continue;
+      const int y = yx[2 * i];
+      const int x = yx[2 * i + 1];
+      if (y < 0 || y >= H || x < 0 || x >= W) continue;
+      if (y + r < ylo || y - r > yhi || x + r < xlo || x - r > xhi) continue;
+      hits[atomicAdd(&n_hits, 1)] = make_int2(y, x);
     }
+    __syncthreads();
+    // Each thread zeroes the in-image pixels of its share of the halo'd
+    // tile that lie in some hit's square (pixels outside the image stay
+    // -inf).
+    for (int k = threadIdx.x; k < (kTileH + 2) * (kTileW + 2);
+         k += blockDim.x) {
+      const int ly = k / (kTileW + 2);
+      const int lx = k - ly * (kTileW + 2);
+      const int y = ylo + ly, x = xlo + lx;
+      if (y < 0 || y >= H || x < 0 || x >= W) continue;
+      bool hit = false;
+      for (int q = 0; q < n_hits && !hit; ++q) {
+        const int2 p = hits[q];  // (y, x)
+        hit = abs(y - p.x) <= r && abs(x - p.y) <= r;
+      }
+      if (hit) tile[ly][lx] = 0.0f;
+    }
+    __syncthreads();  // before the next chunk resets n_hits
   }
-  out[p] = (v >= pooled && v > min_response) ? v : 0.0f;
+  __syncthreads();  // the tile loads, when there is no point
+
+  for (int k = threadIdx.x; k < kTileH * kTileW; k += blockDim.x) {
+    const int ly = k / kTileW;
+    const int lx = k - ly * kTileW;
+    const int y = ty0 + ly, x = tx0 + lx;
+    if (y >= H || x >= W) continue;
+    const float v = tile[ly + 1][lx + 1];
+    float pooled = -INFINITY;
+    for (int dy = 0; dy < 3; ++dy) {
+      for (int dx = 0; dx < 3; ++dx) {
+        pooled = fmaxf(pooled, tile[ly + dy][lx + dx]);
+      }
+    }
+    out[static_cast<int64_t>(y) * W + x] =
+        (v >= pooled && v > min_response) ? v : 0.0f;
+  }
 }
 
 }  // namespace
 
-// occ: zero-filled (H, W) uint8 scratch; sup: (H, W) float32 scratch.
 extern "C" int slamtpu_suppress_nms(const float* resp, const int32_t* yx,
-                                    const uint8_t* valid, uint8_t* occ,
-                                    float* sup, float* out, int H, int W,
-                                    int N, int radius, float min_response,
-                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N > 0) {
-    rasterize_kernel<<<(N + 127) / 128, 128, 0, s>>>(yx, valid, occ, N, H, W,
-                                                      radius);
-  }
-  const dim3 grid((W + 127) / 128, H);
-  dilate_suppress_kernel<<<grid, 128, 0, s>>>(resp, occ, sup, H, W, radius);
-  nms_kernel<<<grid, 128, 0, s>>>(sup, out, H, W, min_response);
+                                    const uint8_t* valid, float* out, int H,
+                                    int W, int N, int radius,
+                                    float min_response, void* stream) {
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
+  suppress_nms_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      resp, yx, valid, out, H, W, N, radius, min_response);
   return static_cast<int>(cudaGetLastError());
 }

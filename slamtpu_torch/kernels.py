@@ -8,10 +8,11 @@ The library lands in `build/slamtpu_torch/` at the repository root, named by
 a hash of the sources, and is built at first use — never at import, so the
 CPU tests import every module on a machine without nvcc.
 
-Each C entry point takes raw device pointers and the current CUDA stream as
-`void*`, launches, and returns `cudaGetLastError()`; `check` raises on a
-nonzero code (a refused launch never runs and a later synchronize would not
-report it).
+Each launching C entry point takes raw device pointers and the current CUDA
+stream as `void*`, launches, and returns `cudaGetLastError()`; `check`
+raises on a nonzero code (a refused launch never runs and a later
+synchronize would not report it). `SOURCE_FLAGS` gives one source extra
+nvcc flags.
 """
 from __future__ import annotations
 
@@ -31,15 +32,22 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 ]
+# Extra flags of one source. lk_level.cu: no fused multiply-add, so each
+# multiply and add rounds as PyTorch's separate elementwise ops do.
+SOURCE_FLAGS = {"lk_level.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # src, start, out, C, H, W, N, t1, t2, stream
     "slamtpu_window_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # resp, yx, valid, occ, sup, out, H, W, N, radius, min_response, stream
-    "slamtpu_suppress_nms": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             ctypes.c_float, _P],
+    # resp, yx, valid, out, H, W, N, radius, min_response, stream
+    "slamtpu_suppress_nms": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                             _P],
+    # stack, img2, p_lvl, flow_in, ok_in, flow_out, ok_out, counts, Hp, Wp,
+    # N, H, W, window, iters, pad, min_active, escape_fail, eps,
+    # eig_thresh, stream
+    "slamtpu_lk_level": [_P] * 8 + [_I] * 10 + [ctypes.c_float] * 2 + [_P],
 }
 
 # Seconds the last build in this process took (0.0 when loaded from disk).
@@ -66,6 +74,7 @@ def library() -> ctypes.CDLL:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     path = BUILD_DIR / f"libslamtpu_kernels_{digest.hexdigest()[:16]}.so"
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -75,8 +84,9 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         nvcc = _nvcc()
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                              str(src)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS,
+                              *SOURCE_FLAGS.get(src.name, []), "-c", "-o",
+                              str(obj), str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
             for src, obj in zip(sources, objs)

@@ -22,11 +22,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from slamtpu.models.frame import Frame
-from slamtpu.params import Params
-from slamtpu.utils.padding import next_bucket
-from slamtpu.utils.profiling import TIMERS
-
+from .frame import Frame
+from ..params import Params
+from ..utils.padding import next_bucket
+from ..utils.profiling import TIMERS
 from ..device import upload
 from ..ops.ba import FREE_CAP, local_bundle_adjustment_packed
 from .map_manager import MapManager

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.features import detect_keypoints
-from slamtpu.utils.profiling import TIMERS
+from ..utils.profiling import TIMERS
 
 
 class Extractor:

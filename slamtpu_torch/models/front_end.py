@@ -26,13 +26,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from slamtpu import hostmath as hm
-from slamtpu.models.frame import Frame
-from slamtpu.models.motion_model import MotionModel
-from slamtpu.params import Params
-from slamtpu.utils.padding import pad_rows, valid_mask
-from slamtpu.utils.profiling import TIMERS
-
+from .. import hostmath as hm
+from .frame import Frame
+from .motion_model import MotionModel
+from ..params import Params
+from ..utils.padding import pad_rows, valid_mask
+from ..utils.profiling import TIMERS
 from ..device import upload
 from ..ops import track_step as ts
 from ..ops.frontend_step import (

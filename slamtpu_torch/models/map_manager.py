@@ -18,10 +18,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from slamtpu.models.frame import Frame
-from slamtpu.params import Params
-from slamtpu.utils.profiling import TIMERS
-
+from .frame import Frame
+from ..params import Params
+from ..utils.profiling import TIMERS
 from ..ops.lucas_kanade import fb_track_merged, lk_pad
 from .extractor import Extractor
 from .map_point import MapPoint
@@ -108,8 +107,8 @@ class MapManager:
         )
 
     def add_keypoints_to_frame(self, frame: Frame, keypoints, descriptors):
-        from slamtpu.camera import backproject_batch, undistort_batch
-        from slamtpu.models.frame import Keypoint
+        from ..camera import backproject_batch, undistort_batch
+        from .frame import Keypoint
 
         px = np.asarray(keypoints, np.float64).reshape(-1, 2)
         und = undistort_batch(frame.camera, px)

@@ -22,14 +22,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from slamtpu import hostmath as hm
-from slamtpu.camera import (
+from .. import hostmath as hm
+from ..camera import (
     backproject_batch, in_image_batch, project_batch, undistort_batch,
 )
-from slamtpu.models.frame import Frame
-from slamtpu.params import Params
-from slamtpu.utils.profiling import TIMERS
-
+from .frame import Frame
+from ..params import Params
+from ..utils.profiling import TIMERS
 from ..device import upload
 from ..ops import keyframe_step as ks
 from ..ops.image import build_lk_pyramid

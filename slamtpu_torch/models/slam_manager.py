@@ -24,11 +24,10 @@ from typing import Optional
 
 import numpy as np
 
-from slamtpu.camera import Camera
-from slamtpu.models.frame import Frame
-from slamtpu.params import Params
-from slamtpu.utils.profiling import TIMERS
-
+from ..camera import Camera
+from .frame import Frame
+from ..params import Params
+from ..utils.profiling import TIMERS
 from ..device import resolve_device, upload
 from .extractor import Extractor
 from .front_end import FrontEnd

@@ -1,8 +1,8 @@
 """Occupancy suppression + 3x3 NMS + threshold — kernel K2 of the port.
 
 Port of slamtpu/ops/detect_pallas.py::suppress_and_nms, whose TPU kernel
-(`_detect_kernel`, one VMEM-resident pass) becomes the CUDA kernels in
-slamtpu_torch/csrc/suppress_nms.cu (three launches on one stream).
+(`_detect_kernel`, one VMEM-resident pass) becomes the CUDA kernel in
+slamtpu_torch/csrc/suppress_nms.cu (one tiled launch, no scratch).
 
 Contract: `suppress_and_nms(resp (H, W) f32, yx (N, 2) int32, occ_valid (N,)
 bool, *, radius, min_response) -> (H, W)`: zero `resp` inside the
@@ -67,18 +67,16 @@ def _check(resp, yx, occ_valid):
 
 def suppress_and_nms_cuda(resp, yx, occ_valid, *, radius: int,
                           min_response: float):
-    """Launch the CUDA kernels (no checks beyond the wrapper's)."""
+    """Launch the CUDA kernel (no checks beyond the wrapper's)."""
     h, w = resp.shape
     n = yx.shape[0]
-    occ = torch.zeros((h, w), dtype=torch.uint8, device=resp.device)
-    sup = torch.empty((h, w), dtype=torch.float32, device=resp.device)
     out = torch.empty((h, w), dtype=torch.float32, device=resp.device)
     valid = occ_valid.view(torch.uint8)
     lib = kernels.library()
     code = lib.slamtpu_suppress_nms(
-        resp.data_ptr(), yx.data_ptr(), valid.data_ptr(), occ.data_ptr(),
-        sup.data_ptr(), out.data_ptr(), h, w, n, int(radius),
-        float(min_response), kernels.stream_ptr(resp.device),
+        resp.data_ptr(), yx.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        h, w, n, int(radius), float(min_response),
+        kernels.stream_ptr(resp.device),
     )
     kernels.check(code, "slamtpu_suppress_nms")
     suppress_and_nms.launches += 1
@@ -101,5 +99,5 @@ def suppress_and_nms(resp, yx, occ_valid, *, radius: int,
                                  min_response=min_response)
 
 
-# Launches of the CUDA kernels in this process; the CPU path never counts.
+# Launches of the CUDA kernel in this process; the CPU path never counts.
 suppress_and_nms.launches = 0

@@ -1,5 +1,5 @@
 """Carry-chained keyframe program: Shi-Tomasi detection (kernel K2) + slot
-admission + stereo KLT (kernel K1) + stereo and temporal DLT.
+admission + stereo KLT (the LK level kernel) + stereo and temporal DLT.
 
 Port of slamtpu/ops/keyframe_step.py (`_shi_tomasi_cells`,
 `keyframe_step_carry` and the KS2_* / K2_* / M2_* layouts):

@@ -1,19 +1,27 @@
 """Batched pyramidal Lucas-Kanade optical flow with forward-backward check.
 
-Port of the parts of slamtpu/ops/lucas_kanade.py that the classic stereo
-path runs: `pinv2x2_sym`, the default level solver `_lk_level_patch_lanes`
+Port of the parts of slamtpu/ops/lucas_kanade.py that the port's paths
+run: `pinv2x2_sym`, the default level solver `_lk_level_patch_lanes`
 (patch-cached: the first image's 6-map window and the second image's
-(T+1+2R)^2 patch are gathered ONCE per level with kernel K1,
-ops/window_gather.py), `lk_flow`, and the compacted failed-prior retry
-cascade `fb_retry_compact` (= `fb_cascade` = `fb_track_merged`, the names
-the JAX package's callers use).
+(T+1+2R)^2 patch are gathered ONCE per level), `lk_flow`, and the
+compacted failed-prior retry cascade `fb_retry_compact` (= `fb_cascade` =
+`fb_track_merged`, the names the JAX package's callers use).
+
+The level solver is `lk_level`: a CPU tensor takes the plain version
+`lk_level_plain` (tensor ops, gathers by K1's plain version
+`gather_windows_plain`, one host sync per solver iteration for the stop
+rule); a CUDA tensor launches the hand-written level kernel
+slamtpu_torch/csrc/lk_level.cu (one cooperative launch per level: gathers
+into shared memory, the whole solver loop and its stop rule on the device)
+or raises. On the card the cascade therefore issues no host sync.
 
 Semantics kept exactly, because results depend on them:
   - the level loop stops when at most min(lk_min_active, sum(ok) // 32)
-    points still iterate (the JAX `lax.while_loop` condition). On the card
-    this is one host sync per solver iteration;
-  - a level runs only if some point is alive (the JAX `lax.cond(any(ok))`
-    becomes a Python `if`);
+    points still iterate (the JAX `lax.while_loop` condition, checked
+    before every iteration);
+  - a level entered with no live point leaves flow and ok unchanged (the
+    gate only clears bits and 0 > min(min_active, 0) is false), which is
+    what the JAX `lax.cond(any(ok))` skip gives, without a host branch;
   - the retry compaction scatters the non-retried rows into a dump row
     RETRY_CAP that is then dropped.
 
@@ -26,8 +34,9 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from .image import pyramid_level_shape
-from .window_gather import gather_windows
+from .window_gather import gather_windows_plain
 
 LK_PATCH_MARGIN = 6
 
@@ -68,10 +77,12 @@ def _norm2(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
-def _lk_level_patch(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
-                    eig_thresh, pad, min_active: int = 0,
-                    escape_fail: bool = False):
-    """One pyramid level for all N points (JAX `_lk_level_patch_lanes`).
+def lk_level_plain(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
+                   eig_thresh, pad, min_active: int = 0,
+                   escape_fail: bool = False):
+    """Plain PyTorch version of one pyramid level for all N points (JAX
+    `_lk_level_patch_lanes`): tensor ops, one host sync per iteration. No
+    hand-written kernel runs in it, on any device.
 
     p_lvl: (N, 2) int32 level coordinates (y, x); flow: (N, 2) f32 at this
     level's scale; ok: (N,) bool. Returns (flow, ok).
@@ -89,7 +100,7 @@ def _lk_level_patch(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
     ox = offs[None, None, :]            # (1, 1, T)
 
     start = p_lvl - w + pad
-    stack_w = gather_windows(d1["stack"], start, T, T)  # (N, 6, T, T)
+    stack_w = gather_windows_plain(d1["stack"], start, T, T)  # (N,6,T,T)
     img1_w, iy_w, ix_w = stack_w[:, 0], stack_w[:, 1], stack_w[:, 2]
     gyy_w, gxx_w, gyx_w = stack_w[:, 3], stack_w[:, 4], stack_w[:, 5]
 
@@ -119,7 +130,7 @@ def _lk_level_patch(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
     q0 = p_f + flow
     q0_safe = torch.where(in_bounds(q0)[:, None], q0, p_f)
     base = torch.floor(q0_safe).to(torch.int32) - w - R + pad
-    patch = gather_windows(d2["img"][None], base, P, P)[:, 0]  # (N, P, P)
+    patch = gather_windows_plain(d2["img"][None], base, P, P)[:, 0]
 
     # Mask + structure tensor once per level, clamped at the entry
     # correspondence (reference lucas_kanade.jl:58-72).
@@ -180,6 +191,98 @@ def _lk_level_patch(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
     return flow, ok
 
 
+def _check_level(d1, d2, p_lvl, flow, ok, hw, window, pad):
+    stack, img = d1["stack"], d2["img"]
+    n = p_lvl.shape[0]
+    if stack.dim() != 3 or stack.shape[0] != 6 \
+            or tuple(img.shape) != tuple(stack.shape[1:]):
+        raise ValueError(
+            f"lk_level: stack (6, Hp, Wp) and img (Hp, Wp) expected, got "
+            f"{tuple(stack.shape)} and {tuple(img.shape)}")
+    if tuple(p_lvl.shape) != (n, 2) or tuple(flow.shape) != (n, 2) \
+            or tuple(ok.shape) != (n,):
+        raise ValueError(
+            f"lk_level: p_lvl (N, 2), flow (N, 2), ok (N,) expected, got "
+            f"{tuple(p_lvl.shape)}, {tuple(flow.shape)}, {tuple(ok.shape)}")
+    if stack.dtype != torch.float32 or img.dtype != torch.float32 \
+            or flow.dtype != torch.float32 or p_lvl.dtype != torch.int32 \
+            or ok.dtype != torch.bool:
+        raise TypeError(
+            "lk_level: float32 stack, img and flow, int32 p_lvl and bool ok "
+            f"expected, got {stack.dtype}, {img.dtype}, {flow.dtype}, "
+            f"{p_lvl.dtype}, {ok.dtype}")
+    if not (stack.device == img.device == p_lvl.device == flow.device
+            == ok.device):
+        raise ValueError("lk_level: inputs on different devices")
+    hp, wp = stack.shape[1:]
+    t = 2 * window + 1
+    if tuple(hw) != (hp - 2 * pad, wp - 2 * pad) \
+            or not t + 1 + 2 * LK_PATCH_MARGIN <= min(hp, wp):
+        raise ValueError(
+            f"lk_level: level {tuple(hw)} with pad {pad} and window {window} "
+            f"does not fit a ({hp}, {wp}) padded map")
+
+
+def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
+                  eig_thresh, pad, min_active: int = 0,
+                  escape_fail: bool = False, return_counts: bool = False):
+    """Launch the level kernel (no checks beyond the wrapper's). A grid
+    that cannot be resident at once is refused by the launch and raises.
+    With return_counts, also its (iters + 1) barrier words: word k holds
+    the grid's running count before iteration k in its bits above
+    LK_LEVEL_ARRIVE_BITS and, if that check ran, the arrived blocks below
+    them (see lk_level.cu)."""
+    stack, img = d1["stack"], d2["img"]
+    n = p_lvl.shape[0]
+    flow_out = torch.empty_like(flow)
+    ok_out = torch.empty_like(ok)
+    counts = torch.zeros(int(iters) + 1, dtype=torch.int32,
+                         device=flow.device)
+    if n:
+        lib = kernels.library()
+        h, w = hw
+        code = lib.slamtpu_lk_level(
+            stack.data_ptr(), img.data_ptr(), p_lvl.data_ptr(),
+            flow.data_ptr(), ok.data_ptr(), flow_out.data_ptr(),
+            ok_out.data_ptr(), counts.data_ptr(), stack.shape[1],
+            stack.shape[2], n, int(h), int(w), int(window), int(iters),
+            int(pad), int(min_active), int(bool(escape_fail)), float(eps),
+            float(eig_thresh), kernels.stream_ptr(flow.device),
+        )
+        kernels.check(code, "slamtpu_lk_level")
+        lk_level.launches += 1
+    if return_counts:
+        return flow_out, ok_out, counts
+    return flow_out, ok_out
+
+
+def lk_level(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
+             eig_thresh, pad, min_active: int = 0, escape_fail: bool = False):
+    """One pyramid level for all N points -> (flow, ok). CPU tensors take
+    lk_level_plain; CUDA tensors launch the level kernel or raise."""
+    kw = dict(hw=hw, window=window, iters=iters, eps=eps,
+              eig_thresh=eig_thresh, pad=pad, min_active=min_active,
+              escape_fail=escape_fail)
+    _check_level(d1, d2, p_lvl, flow, ok, hw, window, pad)
+    if flow.device.type == "cpu":
+        return lk_level_plain(d1, d2, p_lvl, flow, ok, **kw)
+    if flow.device.type != "cuda":
+        raise RuntimeError(f"lk_level: unsupported device {flow.device}")
+    if not all(x.is_contiguous() for x in (d1["stack"], d2["img"], p_lvl,
+                                           flow, ok)):
+        raise ValueError("lk_level: inputs must be contiguous")
+    return lk_level_cuda(d1, d2, p_lvl, flow, ok, **kw)
+
+
+# Launches of the CUDA level kernel in this process; the CPU path never
+# counts.
+lk_level.launches = 0
+
+# Bits of a level-kernel barrier word that count arrived blocks
+# (kArriveBits in lk_level.cu).
+LK_LEVEL_ARRIVE_BITS = 12
+
+
 def lk_flow(pyr1, pyr2, points, displacement, valid, *, levels, window,
             iters, eps, eig_thresh, pad, min_active: int = 0,
             escape_fail: bool = False):
@@ -192,13 +295,12 @@ def lk_flow(pyr1, pyr2, points, displacement, valid, *, levels, window,
     ok = valid
     for level in range(levels, -1, -1):
         d1, d2 = pyr1[level], pyr2[level]
-        if bool(ok.any()):
-            p_lvl = torch.floor(points / (2.0 ** level)).to(torch.int32)
-            flow, ok = _lk_level_patch(
-                d1, d2, p_lvl, flow, ok, hw=pyramid_level_shape(d1, pad),
-                window=window, iters=iters, eps=eps, eig_thresh=eig_thresh,
-                pad=pad, min_active=min_active, escape_fail=escape_fail,
-            )
+        p_lvl = torch.floor(points / (2.0 ** level)).to(torch.int32)
+        flow, ok = lk_level(
+            d1, d2, p_lvl, flow, ok, hw=pyramid_level_shape(d1, pad),
+            window=window, iters=iters, eps=eps, eig_thresh=eig_thresh,
+            pad=pad, min_active=min_active, escape_fail=escape_fail,
+        )
         if level > 0:
             flow = flow * 2.0
     return flow, ok
@@ -230,13 +332,11 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
                                    inject_disp, flow)
                 ok = ok | inject_mask
             d1, d2 = pyr_prev[level], pyr_cur[level]
-            if bool(ok.any()):
-                p_lvl = torch.floor(px_c / (2.0 ** level)).to(torch.int32)
-                flow, ok = _lk_level_patch(
-                    d1, d2, p_lvl, flow, ok,
-                    hw=pyramid_level_shape(d1, pad), min_active=min_active,
-                    **level_kw,
-                )
+            p_lvl = torch.floor(px_c / (2.0 ** level)).to(torch.int32)
+            flow, ok = lk_level(
+                d1, d2, p_lvl, flow, ok, hw=pyramid_level_shape(d1, pad),
+                min_active=min_active, **level_kw,
+            )
             if level > 0:
                 flow = flow * 2.0
         return flow, ok

@@ -9,9 +9,9 @@ with carry = {pyramid, packed (cap, 10) keypoint state, (48,) misc: previous
 keyframe pose, last pose, constant-velocity motion model}. The host applies
 its bookkeeping one frame behind from the fetched outputs
 (models/front_end.py). Inside the step: the motion-model predict, 3D
-projection priors, `frontend_step` (the LK cascade with kernel K1, RANSAC,
-PnP), the final-pose cascade, the motion-model update and the next keypoint
-state.
+projection priors, `frontend_step` (the LK cascade on the LK level kernel,
+RANSAC, PnP), the final-pose cascade, the motion-model update and the next
+keypoint state.
 
 Carries are shared: a carry handed to `track_step` is also held by the
 in-flight frame record that produced it (and by a pending keyframe), so

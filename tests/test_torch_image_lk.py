@@ -134,3 +134,38 @@ def test_lk_flow_backward_matches_jax():
                         torch.ones(len(px), dtype=torch.bool), **kw)
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
     np.testing.assert_allclose(ft.numpy(), np.asarray(fj), atol=1e-3)
+
+
+@pytest.mark.parametrize("min_active,escape_fail", [(0, False), (16, True)])
+def test_level_with_no_live_point_is_unchanged(min_active, escape_fail):
+    """A level entered with every `ok` false returns `flow` and `ok`
+    unchanged (the JAX package skips such a level with lax.cond; the port
+    runs it without a host branch: the gate only clears bits and the loop
+    condition 0 > min(min_active, 0) is false)."""
+    from slamtpu_torch.ops.lucas_kanade import lk_level
+    from slamtpu_torch.ops.image import pyramid_level_shape
+
+    img, img2, px = _blobs(seed=8)
+    pad = lk_pad(4)
+    pyr1 = t_pyramid(torch.from_numpy(img), levels=0, pad=pad)
+    pyr2 = t_pyramid(torch.from_numpy(img2), levels=0, pad=pad)
+    rng = np.random.default_rng(8)
+    flow = torch.from_numpy(rng.normal(0, 2, (len(px), 2)).astype(np.float32))
+    ok = torch.zeros(len(px), dtype=torch.bool)
+    p_lvl = torch.floor(torch.from_numpy(px)).to(torch.int32)
+    flow_out, ok_out = lk_level(
+        pyr1[0], pyr2[0], p_lvl, flow, ok,
+        hw=pyramid_level_shape(pyr1[0], pad), window=4, iters=30, eps=1e-2,
+        eig_thresh=1e-4, pad=pad, min_active=min_active,
+        escape_fail=escape_fail)
+    assert torch.equal(flow_out, flow)
+    assert torch.equal(ok_out, ok)
+    # Through lk_flow too: every level dead, flow only rescaled.
+    pyr1 = t_pyramid(torch.from_numpy(img), levels=2, pad=pad)
+    pyr2 = t_pyramid(torch.from_numpy(img2), levels=2, pad=pad)
+    ft, okt = t_lk_flow(pyr1, pyr2, torch.from_numpy(px), flow, ok,
+                        levels=2, window=4, iters=30, eps=1e-2,
+                        eig_thresh=1e-4, pad=pad, min_active=min_active,
+                        escape_fail=escape_fail)
+    assert torch.equal(ft, flow * 4.0)
+    assert not okt.any()

@@ -1,19 +1,22 @@
-"""The PyTorch port imports without jax, and refuses what it does not run.
+"""The PyTorch port imports without jax or the JAX package, and refuses
+what it does not run.
 
-The GPU machine has no jax installed, so `slamtpu_torch` must import (and
-run) with jax unavailable; SlamManager must never fall back to the CPU on
-its own, and must refuse every configuration outside the ported slice
-instead of quietly running something else.
+The GPU machine has no jax installed, and the port keeps its own copies of
+the host modules, so `slamtpu_torch` must import (and run) with both jax
+and every `slamtpu` module unavailable; SlamManager must never fall back to
+the CPU on its own, and must refuse every configuration outside the ported
+slice instead of quietly running something else.
 """
 import pathlib
+import re
 import subprocess
 import sys
 
 import pytest
 import torch
 
-from slamtpu.datasets.synthetic import make_scene
-from slamtpu.params import Params
+from slamtpu_torch.datasets.synthetic import make_scene
+from slamtpu_torch.params import Params
 
 torch.set_num_threads(2)
 
@@ -22,21 +25,25 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
-class _BlockJax:
+def _blocked(name):
+    return (name in ("jax", "slamtpu")
+            or name.startswith(("jax.", "jaxlib", "slamtpu.")))
+
+class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError(f"jax is blocked: {name}")
+        if _blocked(name):
+            raise ImportError(f"blocked: {name}")
         return None
 
-for mod in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]:
+for mod in [m for m in sys.modules if _blocked(m)]:
     del sys.modules[mod]
-sys.meta_path.insert(0, _BlockJax())
+sys.meta_path.insert(0, _Block())
 
 import slamtpu_torch
 names = [m.name for m in pkgutil.walk_packages(slamtpu_torch.__path__, "slamtpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+assert not any(_blocked(m) for m in sys.modules)
 for name in ("slamtpu_torch.ops.ba", "slamtpu_torch.ops.track_step",
              "slamtpu_torch.ops.keyframe_step"):
     assert name in names, name
@@ -45,19 +52,47 @@ print(len(names))
 
 
 def test_imports_with_jax_blocked():
+    """Both jax and every module of the JAX package are blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 23
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 36
+
+
+# `import jax`, `from jax`, `from slamtpu.x`, `from slamtpu import`,
+# `import slamtpu` / `import slamtpu.x` (never `slamtpu_torch`).
+_FORBIDDEN = re.compile(
+    r"^\s*(import jax\b|from jax\b|from slamtpu\.|from slamtpu import\b"
+    r"|import slamtpu(\.|\s|$))", re.MULTILINE)
+
+
+def _port_sources():
+    return [*(REPO / "slamtpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+            REPO / "scripts" / "torch_profile.py"]
 
 
 def test_no_jax_import_in_sources():
-    for path in (REPO / "slamtpu_torch").rglob("*.py"):
+    for path in _port_sources():
         text = path.read_text()
         assert "import jax" not in text, path
         assert "from jax" not in text, path
+        found = _FORBIDDEN.search(text)
+        assert found is None, (path, found and found.group(0))
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("from slamtpu.params import Params", True),
+    ("from slamtpu import hostmath as hm", True),
+    ("import slamtpu", True),
+    ("    import slamtpu.ops.se3 as jse3", True),
+    ("from slamtpu_torch.params import Params", False),
+    ("import slamtpu_torch", False),
+    ("from .params import Params", False),
+])
+def test_forbidden_import_pattern(line, bad):
+    assert (_FORBIDDEN.search(line) is not None) == bad
 
 
 def _stereo_scene():

@@ -17,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+import slamtpu.utils.profiling as jax_profiling
+import slamtpu_torch.utils.profiling as torch_profiling
 from slamtpu import Params
 from slamtpu.datasets.synthetic import make_scene
 from slamtpu.eval.ate import ate_rmse
 from slamtpu.io.saver import ReplaySaver
-from slamtpu.utils.profiling import TIMERS
+from slamtpu_torch.convert import camera_from_jax, params_from_jax
 
 torch.set_num_threads(2)
 
@@ -34,19 +36,24 @@ def _run(package, **overrides):
                        stereo=True, baseline=0.5, seed=9)
     params = Params(stereo=True, max_nb_keypoints=400, max_distance=24,
                     keypoint_capacity=512, initial_parallax=8.0, **overrides)
-    saver = ReplaySaver()
     if package == "torch":
+        from slamtpu_torch import ReplaySaver as TorchSaver
         from slamtpu_torch import SlamManager
 
-        sm = SlamManager(params, scene.camera,
-                         right_camera=scene.right_camera, slam_io=saver,
-                         device="cpu")
+        saver = TorchSaver()
+        sm = SlamManager(params_from_jax(params),
+                         camera_from_jax(scene.camera),
+                         right_camera=camera_from_jax(scene.right_camera),
+                         slam_io=saver, device="cpu")
+        timers = torch_profiling.TIMERS
     else:
         from slamtpu.models.slam_manager import SlamManager
 
+        saver = ReplaySaver()
         sm = SlamManager(params, scene.camera,
                          right_camera=scene.right_camera, slam_io=saver)
-    TIMERS.reset()
+        timers = jax_profiling.TIMERS
+    timers.reset()
     resets = []
     orig_reset = sm.reset
     sm.reset = lambda: (resets.append(1), orig_reset())
@@ -54,7 +61,7 @@ def _run(package, **overrides):
         left, right = scene.frame(i)
         sm.add_stereo_image(left, right, float(scene.timestamps[i]))
     sm.wait()
-    summary = TIMERS.summary()
+    summary = timers.summary()
     gt = np.stack([p[:3, 3] for p in scene.poses_wc])
     est = saver.trajectory_xyz().astype(np.float64)
     return {
@@ -136,8 +143,10 @@ def _collapse_and_recover(package):
     if package == "torch":
         from slamtpu_torch import SlamManager
 
-        sm = SlamManager(params, scene.camera,
-                         right_camera=scene.right_camera, device="cpu")
+        sm = SlamManager(params_from_jax(params),
+                         camera_from_jax(scene.camera),
+                         right_camera=camera_from_jax(scene.right_camera),
+                         device="cpu")
     else:
         from slamtpu.models.slam_manager import SlamManager
 
@@ -150,7 +159,7 @@ def _collapse_and_recover(package):
         if i in (9, 11):
             sm.wait()
     sm.wait()
-    return sm, params
+    return sm, sm.params
 
 
 def test_collapse_and_recovery_match_jax():

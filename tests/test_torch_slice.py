@@ -17,6 +17,7 @@ from slamtpu import Params
 from slamtpu.datasets.synthetic import make_scene
 from slamtpu.eval.ate import ate_rmse
 from slamtpu.io.saver import ReplaySaver
+from slamtpu_torch.convert import camera_from_jax, params_from_jax
 
 torch.set_num_threads(2)
 
@@ -27,16 +28,19 @@ def _run(package):
     params = Params(stereo=True, max_nb_keypoints=400, max_distance=24,
                     keypoint_capacity=512, initial_parallax=8.0,
                     pipelined=False, do_local_bundle_adjustment=False)
-    saver = ReplaySaver()
     if package == "torch":
+        from slamtpu_torch import ReplaySaver as TorchSaver
         from slamtpu_torch import SlamManager
 
-        sm = SlamManager(params, scene.camera,
-                         right_camera=scene.right_camera, slam_io=saver,
-                         device="cpu")
+        saver = TorchSaver()
+        sm = SlamManager(params_from_jax(params),
+                         camera_from_jax(scene.camera),
+                         right_camera=camera_from_jax(scene.right_camera),
+                         slam_io=saver, device="cpu")
     else:
         from slamtpu.models.slam_manager import SlamManager
 
+        saver = ReplaySaver()
         sm = SlamManager(params, scene.camera,
                          right_camera=scene.right_camera, slam_io=saver)
     for i in range(len(scene)):

@@ -27,7 +27,9 @@ import torch
 
 from slamtpu import Params
 from slamtpu.datasets.synthetic import make_scene
-from slamtpu_torch.convert import pyramid_from_numpy, tensor_from_numpy
+from slamtpu_torch.convert import (
+    camera_from_jax, params_from_jax, pyramid_from_numpy, tensor_from_numpy,
+)
 from slamtpu_torch.ops import track_step as tts
 
 torch.set_num_threads(2)
@@ -195,8 +197,10 @@ def _front_ends():
                        stereo=True, seed=0)
     jsm = JaxSM(Params(stereo=True, seed=3), scene.camera,
                 right_camera=scene.right_camera)
-    tsm = TorchSM(Params(stereo=True, seed=3), scene.camera,
-                  right_camera=scene.right_camera, device="cpu")
+    tsm = TorchSM(params_from_jax(Params(stereo=True, seed=3)),
+                  camera_from_jax(scene.camera),
+                  right_camera=camera_from_jax(scene.right_camera),
+                  device="cpu")
     return jsm.front_end, tsm.front_end
 
 
@@ -228,7 +232,8 @@ def test_pipeline_dispatch_keys_on_the_dispatched_fid(monkeypatch):
     monkeypatch.setattr(tts, "track_step", spy)
     scene, params = scene_and_params(n_frames=6,
                                      do_local_bundle_adjustment=False)
-    sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
+    sm = SlamManager(params_from_jax(params), camera_from_jax(scene.camera),
+                     right_camera=camera_from_jax(scene.right_camera),
                      device="cpu")
     for i in range(len(scene)):
         left, right = scene.frame(i)
