@@ -1,13 +1,15 @@
 """Profile one of the PyTorch port's paths on one NVIDIA GPU.
 
-    python scripts/torch_profile.py [--path default|classic]
+    python scripts/torch_profile.py [--path default|classic|mono]
         [--frames N] [--window A,B] [--out NAME]
 
 --path default (the default): bench.py's 60-frame 376x1241 synthetic
 stereo city scene with Params(stereo=True) (chip_smoke.py phase 6), window
 20,30. --path classic: the same scene cut to 30 frames with
 Params(stereo=True, pipelined=False, do_local_bundle_adjustment=False)
-(chip_smoke.py phase 5), window 10,20. torch.profiler covers the frames in
+(chip_smoke.py phase 5), window 10,20. --path mono: the 60-frame scene's
+left images through add_image with Params(stereo=False) (chip_smoke.py
+phase 7), window 20,30. torch.profiler covers the frames in
 the window (steady state: past the bootstrap keyframes). Prints, and
 writes to chiprun_out/<NAME or torch_profile_<path>>.json:
   - the card's name and power limit (nvidia-smi);
@@ -36,7 +38,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 # Path -> (frames, profiled window).
-PATHS = {"default": (60, "20,30"), "classic": (30, "10,20")}
+PATHS = {"default": (60, "20,30"), "classic": (30, "10,20"),
+         "mono": (60, "20,30")}
 
 
 def _device_time(evt) -> float:
@@ -82,17 +85,24 @@ def main() -> int:
                        n_points=6000, stereo=True, baseline=0.54, seed=7,
                        layout="city")
     frames = [scene.frame(i) for i in range(len(scene))]
+    mono = args.path == "mono"
     if args.path == "default":
         params = Params(stereo=True)
+    elif mono:
+        params = Params(stereo=False)
     else:
         params = Params(stereo=True, pipelined=False,
                         do_local_bundle_adjustment=False)
-    sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
+    sm = SlamManager(params, scene.camera,
+                     right_camera=None if mono else scene.right_camera,
                      slam_io=ReplaySaver(), device="cuda")
 
     def feed(i):
         left, right = frames[i]
-        sm.add_stereo_image(left, right, float(scene.timestamps[i]))
+        if mono:
+            sm.add_image(left, float(scene.timestamps[i]))
+        else:
+            sm.add_stereo_image(left, right, float(scene.timestamps[i]))
 
     for i in range(w0):
         feed(i)

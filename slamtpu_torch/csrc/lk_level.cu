@@ -44,6 +44,20 @@
 // iterations ran. The cooperative launch refuses a grid whose blocks cannot
 // all be resident (cudaErrorCooperativeLaunchTooLarge); the entry point
 // refuses more blocks than the arrival bits count.
+//
+// 1-D mode (one_d != 0, lk_level_1d_kernel): the disparity-only level of
+// rectified stereo, Params.stereo_klt_1d. It replaces the same TPU kernel
+// where the JAX package's 1-D level (lucas_kanade.py::_lk_level_lanes_1d)
+// gathers its stack window (:594) and its (T, P) patch (:632) with it; its
+// contract is lk_level_1d_plain in slamtpu_torch/ops/lucas_kanade.py:
+// flow_y pinned to 0, the scalar step inv_sxx * b_x, the gate
+// sxx / count >= eig_thresh, the patch rows fixed at the template rows,
+// 2-tap sampling, escape, convergence and bounds on x only, and the same
+// stop rule. What bounds it: bytes, as in 2-D mode, with fewer of them (the
+// img and Ix windows and a T x P patch; Gxx is read once). Design: the 2-D
+// kernel's, one warp a point, cp.async staging into shared memory and the
+// same count-carrying barrier, so the keyframe program's stereo cascade
+// stays free of host syncs in either mode.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,6 +84,14 @@ struct LevelArgs {
   int Hp, Wp, N, H, W, w, iters, pad, min_active, escape_fail;
   float eps, eig_thresh;
 };
+
+// Shared memory a warp needs in 2-D mode (img, Iy, Ix windows and the
+// P x P patch); the 1-D mode uses less of the same slice.
+__host__ __device__ __forceinline__ int warp_smem_floats(int window) {
+  const int T = 2 * window + 1;
+  const int P = T + 1 + 2 * kMargin;
+  return 3 * T * T + P * P;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -113,7 +135,7 @@ lk_level_kernel(LevelArgs a) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarps + warp;
   const int64_t plane = static_cast<int64_t>(a.Hp) * a.Wp;
-  float* img1 = smem + warp * (3 * TT + P * P);
+  float* img1 = smem + warp * warp_smem_floats(a.w);
   float* iy = img1 + TT;
   float* ix = iy + TT;
   float* patch = ix + TT;
@@ -278,15 +300,149 @@ lk_level_kernel(LevelArgs a) {
   }
 }
 
-size_t smem_bytes(int window) {
-  const int T = 2 * window + 1;
+// The disparity-only level (see the note at the top): the same launch,
+// barrier and per-warp layout as lk_level_kernel, on x alone.
+__global__ void __launch_bounds__(kWarps * 32)
+lk_level_1d_kernel(LevelArgs a) {
+  extern __shared__ float smem[];
+  __shared__ int warp_flags[kWarps];
+  __shared__ int total_sh;
+
+  const int T = 2 * a.w + 1;
+  const int TT = T * T;
   const int P = T + 1 + 2 * kMargin;
-  return static_cast<size_t>(kWarps) * (3 * T * T + P * P) * sizeof(float);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + warp;
+  const int64_t plane = static_cast<int64_t>(a.Hp) * a.Wp;
+  float* img1 = smem + warp * warp_smem_floats(a.w);
+  float* ix = img1 + TT;
+  float* patch = ix + TT;  // T rows of P
+
+  const float hmax = static_cast<float>(a.H - 1);
+  const float wmax = static_cast<float>(a.W - 1);
+  const float wf = static_cast<float>(a.w);
+  int pyi = 0, pxi = 0;
+  float fx = 0.f;
+  bool ok = false;
+  if (i < a.N) {
+    pyi = a.p_lvl[2 * i];
+    pxi = a.p_lvl[2 * i + 1];
+    fx = a.flow_in[2 * i + 1];
+    ok = a.ok_in[i] != 0;
+  }
+  const float py = static_cast<float>(pyi);
+  const float px = static_cast<float>(pxi);
+  int base_x = 0;
+  float up = 0.f, down = 0.f, left = 0.f, right = 0.f;
+  float inv_sxx = 0.f;
+  if (ok) {
+    const int sy = clampi(pyi - a.w + a.pad, 0, a.Hp - T);
+    const int sx = clampi(pxi - a.w + a.pad, 0, a.Wp - T);
+    const float qx = px + fx;
+    const float q0x = (qx >= 0.f && qx <= wmax) ? qx : px;
+    base_x = static_cast<int>(floorf(q0x)) - a.w - kMargin + a.pad;
+    const int gx = clampi(base_x, 0, a.Wp - P);
+    for (int k = lane; k < TT; k += 32) {
+      const int y = k / T;
+      const float* src = a.stack + static_cast<int64_t>(sy + y) * a.Wp + sx +
+                         (k - y * T);
+      __pipeline_memcpy_async(img1 + k, src, 4);
+      __pipeline_memcpy_async(ix + k, src + 2 * plane, 4);
+    }
+    // Patch rows are the template rows (sy: the same clamp as the stack
+    // window's start).
+    for (int k = lane; k < T * P; k += 32) {
+      const int y = k / P;
+      __pipeline_memcpy_async(
+          patch + k, a.img2 + static_cast<int64_t>(sy + y) * a.Wp + gx +
+                         (k - y * P), 4);
+    }
+    __pipeline_commit();
+
+    up = fminf(py, wf);
+    down = fminf(hmax - py, wf);
+    left = floorf(fminf(fminf(px, q0x), wf));
+    right = floorf(fminf(wmax - fmaxf(px, q0x), wf));
+    float sxx = 0.f, cnt = 0.f;
+    for (int k = lane; k < TT; k += 32) {
+      const int y = k / T;
+      const int x = k - y * T;
+      const float oy = static_cast<float>(y - a.w);
+      const float ox = static_cast<float>(x - a.w);
+      const float m = (oy >= -up && oy <= down && ox >= -left && ox <= right)
+                          ? 1.f : 0.f;
+      sxx += __ldg(a.stack + 4 * plane +
+                   static_cast<int64_t>(sy + y) * a.Wp + sx + x) * m;
+      cnt += m;
+    }
+    sxx = warp_sum(sxx);
+    cnt = warp_sum(cnt);
+    inv_sxx = sxx > 1e-12f ? 1.0f / fmaxf(sxx, 1e-12f) : 0.f;
+    ok = sxx / fmaxf(cnt, 1.0f) >= a.eig_thresh;
+    __pipeline_wait_prior(0);
+  }
+  __syncwarp();
+
+  int total = grid_count(a.counts, ok, warp_flags, &total_sh);
+  const int stop = min(a.min_active, total / 32);
+
+  bool running = ok;
+  int it = 0;
+  while (it < a.iters && total > stop) {
+    if (running) {
+      const float qx = px + fx;
+      const bool inb = qx >= 0.f && qx <= wmax;
+      bool fail = !inb;
+      const float sx_ = inb ? qx : px;
+      const float flx = floorf(sx_);
+      const float frx = sx_ - flx;
+      int relx = static_cast<int>(flx) - a.w + a.pad - base_x;
+      const bool escaped = relx < 0 || relx > 2 * kMargin;
+      if (a.escape_fail) fail = fail || escaped;
+      relx = clampi(relx, 0, 2 * kMargin);
+      const float w0 = 1.0f - frx;
+      float bx = 0.f;
+      for (int k = lane; k < TT; k += 32) {
+        const int y = k / T;
+        const int x = k - y * T;
+        const float* b = patch + y * P + relx + x;
+        const float img2_s = w0 * b[0] + frx * b[1];
+        const float oy = static_cast<float>(y - a.w);
+        const float ox = static_cast<float>(x - a.w);
+        const float m = (oy >= -up && oy <= down && ox >= -left &&
+                         ox <= right) ? 1.f : 0.f;
+        bx += (img1[k] - img2_s) * m * ix[k];
+      }
+      bx = warp_sum(bx);
+      const float step_x = inv_sxx * bx;
+      const bool converged = fabsf(step_x) < a.eps;
+      const float nfx = fx + step_x;
+      const float nx = px + nfx;
+      fail = fail || (!converged && !(nx >= 0.f && nx <= wmax));
+      if (!fail && !converged && !escaped) fx = nfx;
+      ok = !fail;
+      running = ok && !converged && !escaped;
+    }
+    ++it;
+    total = grid_count(a.counts + it, running, warp_flags, &total_sh);
+  }
+
+  if (i < a.N && lane == 0) {
+    a.flow_out[2 * i] = 0.f;
+    a.flow_out[2 * i + 1] = fx;
+    a.ok_out[i] = ok ? 1 : 0;
+  }
 }
 
-cudaError_t prepare(size_t smem) {
+size_t smem_bytes(int window) {
+  return static_cast<size_t>(kWarps) * warp_smem_floats(window) *
+         sizeof(float);
+}
+
+cudaError_t prepare(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(lk_level_kernel,
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -299,21 +455,23 @@ extern "C" int slamtpu_lk_level(const float* stack, const float* img2,
                                 uint8_t* ok_out, int32_t* counts, int Hp,
                                 int Wp, int N, int H, int W, int window,
                                 int iters, int pad, int min_active,
-                                int escape_fail, float eps, float eig_thresh,
-                                void* stream) {
+                                int escape_fail, int one_d, float eps,
+                                float eig_thresh, void* stream) {
   if (N <= 0) return 0;
   LevelArgs a{stack, img2, p_lvl, flow_in, ok_in, flow_out, ok_out, counts,
               Hp, Wp, N, H, W, window, iters, pad, min_active, escape_fail,
               eps, eig_thresh};
   const int blocks = (N + kWarps - 1) / kWarps;
   if (blocks > kArriveMask) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = one_d ? (const void*)lk_level_1d_kernel
+                             : (const void*)lk_level_kernel;
   const size_t smem = smem_bytes(window);
-  cudaError_t e = prepare(smem);
+  cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel(
-      (const void*)lk_level_kernel, dim3(blocks), dim3(kWarps * 32), params,
-      smem, static_cast<cudaStream_t>(stream));
+      kernel, dim3(blocks), dim3(kWarps * 32), params, smem,
+      static_cast<cudaStream_t>(stream));
   // A refused launch also sets the thread's last error: clear it, so that
   // no later launch check reports it.
   if (e != cudaSuccess) cudaGetLastError();

@@ -15,9 +15,8 @@
 // Design: one block per point; the block's threads stride over the
 // C * t1 * t2 window elements in output order, so consecutive threads read
 // consecutive x of one source row (coalesced within a row) and write
-// consecutive output addresses. Starts are clamped like lax.dynamic_slice
-// on non-negative starts: into [0, H - t1] x [0, W - t2] (the wrapper
-// rejects negative starts). cp.async / TMA staging is later work.
+// consecutive output addresses. Starts are clamped into [0, H - t1] x
+// [0, W - t2], a negative start to 0. cp.async / TMA staging is later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -45,9 +45,9 @@ _SIGNATURES = {
     "slamtpu_suppress_nms": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                              _P],
     # stack, img2, p_lvl, flow_in, ok_in, flow_out, ok_out, counts, Hp, Wp,
-    # N, H, W, window, iters, pad, min_active, escape_fail, eps,
+    # N, H, W, window, iters, pad, min_active, escape_fail, one_d, eps,
     # eig_thresh, stream
-    "slamtpu_lk_level": [_P] * 8 + [_I] * 10 + [ctypes.c_float] * 2 + [_P],
+    "slamtpu_lk_level": [_P] * 8 + [_I] * 11 + [ctypes.c_float] * 2 + [_P],
 }
 
 # Seconds the last build in this process took (0.0 when loaded from disk).

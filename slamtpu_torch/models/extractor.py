@@ -21,13 +21,14 @@ from ..utils.profiling import TIMERS
 class Extractor:
     def __init__(self, max_points: int, radius: int, grid_resolution,
                  cell_size: int, min_response: float = 1e-4,
-                 capacity: int = 1024, *, device):
+                 capacity: int = 1024, subpix: bool = False, *, device):
         self.max_points = max_points
         self.radius = radius
         self.grid_resolution = tuple(grid_resolution)
         self.cell_size = cell_size
         self.min_response = min_response
         self.capacity = capacity
+        self.subpix = subpix
         self.device = torch.device(device)
 
     def _pad_points(self, points: List[np.ndarray]):
@@ -54,6 +55,7 @@ class Extractor:
             vals, ys, xs = detect_keypoints(
                 image_dev, occ, val, cell_size=self.cell_size,
                 radius=self.radius, min_response=self.min_response,
+                subpix=self.subpix,
             )
         with TIMERS.stage("ex.fetch"):
             vals, ys, xs = (t.cpu().numpy() for t in (vals, ys, xs))

@@ -10,11 +10,13 @@ before frame N's results are applied on the host, keyframes and resets
 discard the speculated dispatches and replay them after a resync, and
 `push_correction` reconciles the carry after an async keyframe.
 
-In the port a "dispatch" blocks until its LK loops finish (their stop rule
-syncs the host once per solver iteration), so the pipeline changes the
-order of the host's work, not its overlap; the results are the JAX
-pipelined path's. Left out: `adopt_keyframe_carry` (speculate_keyframes),
-the background prefetch (`track_prefetch`) and `SLAMTPU_C2HA`.
+Mono and stereo run the same steps: before initialization a mono frame
+goes through the parallax gate and the five-point essential RANSAC
+(`check_ready_for_init` -> `compute_pose_5pt`); after it, the mono
+pose-step gate (`max_pose_step_ratio`) guards each applied pose. Left out:
+`adopt_keyframe_carry` (speculate_keyframes, with its stale-parallax
+re-decision), the unfused `track_mono` (fused_front_end=False), the
+background prefetch (`track_prefetch`) and `SLAMTPU_C2HA`.
 """
 from __future__ import annotations
 
@@ -102,6 +104,10 @@ class FrontEnd:
         # candidate counts (removals / candidates = per-gate removal rate).
         self.removal_counts = {"track": 0, "ess": 0, "p3p": 0, "pnp": 0}
         self.gate_candidates = {"track": 0, "ess": 0, "p3p": 0, "pnp": 0}
+        # Diagnostic: per applied frame (fid, pose_source, n_p3p_candidates,
+        # n_inliers, n_pnp_outliers, initial_error, final_error): which stage
+        # last set the frame's pose.
+        self.pose_trace: list = []
 
     def _dev(self, arr, dtype=np.float32):
         return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(
@@ -296,6 +302,11 @@ class FrontEnd:
         mm = self.map_manager
         n = len(ids)
         rc = self.removal_counts
+        pose_source = "mm"
+        # The motion-model prediction (set by the caller just before this
+        # apply), for the mono pose-step gate below.
+        pred_wc = np.asarray(frame.wc, np.float64).copy()
+        pose_5pt = None
 
         # 1. KLT keypoint updates/removals (map_manager.jl:524-562).
         ok = per_kp[:n, 7] > 0
@@ -340,8 +351,10 @@ class FrontEnd:
             norm_t = float(np.linalg.norm(t))
             if norm_t > 1e-12:
                 t = scale * t / norm_t
+            pose_5pt = hm.rt_to_4x4(R, t) @ prev_cw
             if mm.nb_keyframes > 2:
-                frame.set_cw(hm.rt_to_4x4(R, t) @ prev_cw, slam_io)
+                frame.set_cw(pose_5pt, slam_io)
+                pose_source = "5pt"
 
         # 3. P3P + PnP refinement application (front_end.jl:168-218).
         n_p3p = int(scalars[43])
@@ -350,6 +363,7 @@ class FrontEnd:
                         n_p3p)
         elif int(scalars[44]) < 5:
             log.warning("[FE] P3P too few inliers - resetting!")
+            pose_source = "reset"
             self.reset_frame()
         else:
             p3p_in = per_kp[:n, 9] > 0
@@ -369,11 +383,13 @@ class FrontEnd:
                 np.asarray(scalars[16:32], np.float64).reshape(4, 4),
                 slam_io,
             )
+            pose_source = "p3p"
 
             n_inl = int(scalars[44])
             n_out = int(scalars[47])
             if n_inl - n_out < 5 or float(scalars[46]) > float(scalars[45]):
                 log.warning("[FE] P3P BA too few inliers - resetting!")
+                pose_source = "reset"
                 self.reset_frame()
             else:
                 pnp_out = per_kp[:n, 10] > 0
@@ -390,10 +406,37 @@ class FrontEnd:
                     ),
                     slam_io,
                 )
+                pose_source = "pnp"
 
-        # 4. Motion model + keyframe decision (front_end.jl:116-117). The
-        # mono pose-step gate of the JAX package (max_pose_step_ratio) is
-        # mono-only and the port runs stereo only.
+        # Mono pose-step gate (params.max_pose_step_ratio, the JAX
+        # package's addition to the reference): starved map geometry lets
+        # P3P/PnP converge to a low-residual pose that slides far along the
+        # optical axis, and the next keyframe would triangulate with that
+        # baseline. When the PnP step exceeds ratio x the constant-velocity
+        # prediction, fall back to the 5-pt essential pose (vision-based
+        # direction, motion-model scale), or to the prediction itself when
+        # no essential pose fired. Stereo PnP scale is depth-constrained.
+        ratio_gate = self.params.max_pose_step_ratio
+        if (ratio_gate > 0 and not self.params.stereo
+                and pose_source in ("p3p", "pnp")
+                and self.motion_model.prev_time >= 0):
+            prev_t = np.asarray(self.motion_model.prev_wc, np.float64)[:3, 3]
+            pred_step = float(np.linalg.norm(pred_wc[:3, 3] - prev_t))
+            est_step = float(np.linalg.norm(
+                np.asarray(frame.wc, np.float64)[:3, 3] - prev_t))
+            if pred_step > 1e-4 and est_step > ratio_gate * pred_step:
+                if pose_5pt is not None and mm.nb_keyframes > 2:
+                    frame.set_cw(pose_5pt, slam_io)
+                    pose_source = "5pt_gate"
+                else:
+                    frame.set_wc(pred_wc, slam_io)
+                    pose_source = "mm_gate"
+
+        self.pose_trace.append(
+            (frame.id, pose_source, int(scalars[43]), int(scalars[44]),
+             int(scalars[47]), float(scalars[45]), float(scalars[46]))
+        )
+        # 4. Motion model + keyframe decision (front_end.jl:116-117).
         self.motion_model.update(frame.wc, time)
         return self.check_new_kf_required(median_parallax=float(scalars[38]))
 

@@ -170,6 +170,7 @@ class Mapper:
                 min_response=ext.min_response,
                 height=frame.camera.height, width=frame.camera.width,
                 threshold=p.max_reprojection_error,
+                stereo_1d=p.stereo_klt_1d, subpix=p.subpixel_detect,
             )
         pending = PendingKeyframe(
             fid=frame.id, per_slot=per_slot, n_new=n_new,

@@ -12,10 +12,13 @@ keyframe program and its host half runs at the next apply
 uint8-style), are quantized to float16 on the host exactly as the JAX
 package does, and go to the device once through pinned memory.
 
-The port runs `Params(stereo=True)` with the other knobs at their defaults,
-and the classic path (`pipelined=False`), with or without local BA. Any
-other configuration raises NotImplementedError naming the ROADMAP item that
-brings it, rather than running something else.
+The port runs the package's default `Params()` (monocular, through
+`add_image`: five-point initialization, the mono pose-step gate, classic
+keyframes), `Params(stereo=True)` (the carry-chained async keyframe
+program) and the classic path (`pipelined=False`) of either, with or
+without local BA, and the `subpixel_detect` and `stereo_klt_1d` options.
+Any other configuration raises NotImplementedError naming the ROADMAP item
+that brings it, rather than running something else.
 """
 from __future__ import annotations
 
@@ -42,13 +45,8 @@ log = logging.getLogger("slamtpu_torch.sm")
 # fetch RPCs and change no result: the port accepts any value and fetches
 # one frame at a time.
 _SUPPORTED = (
-    ("stereo", True, "Queue 1 item 11 (mono: ops/fivepoint.py)"),
     ("do_local_matching", False, "Queue 1 item 12 (BRIEF local matching)"),
     ("sequential", True, "Queue 1 item 12 (threaded mode)"),
-    ("subpixel_detect", False,
-     "Queue 2 K1 off-slice caller features.py:92 (subpixel_refine)"),
-    ("stereo_klt_1d", False,
-     "Queue 2 K1 off-slice callers lucas_kanade.py:594,632"),
     ("fused_front_end", True, "Queue 1 item 9 (unfused track_mono)"),
     ("fused_stereo", True, "Queue 1 item 9 (unfused stereo matching)"),
     ("speculate_keyframes", False,
@@ -99,7 +97,7 @@ class SlamManager:
         self.extractor = Extractor(
             params.max_nb_keypoints, avoidance_radius, grid_resolution,
             params.max_distance, capacity=params.keypoint_capacity,
-            device=self.device,
+            subpix=params.subpixel_detect, device=self.device,
         )
         self.map_manager = MapManager(
             params, self.current_frame, self.extractor, device=self.device
@@ -176,9 +174,7 @@ class SlamManager:
             self.reset()
             return
         if is_kf_required:
-            kf = KeyFrame(self.current_frame.kfid, fe.current_pyramid,
-                          right_dev)
-            ok = self.mapper.process(kf)
+            ok = self.mapper.process(self._keyframe(fe, right_dev))
             if self.params.reset_required:
                 self.reset()
                 return
@@ -190,6 +186,14 @@ class SlamManager:
         if (self.params.pipelined and not fe.pipeline_active
                 and fe.can_start_pipeline()):
             fe.start_pipeline()
+
+    def _keyframe(self, fe, right_dev) -> KeyFrame:
+        """The mapper's keyframe payload; a mono keyframe carries neither a
+        pyramid nor a right image."""
+        stereo = self.params.stereo
+        return KeyFrame(self.current_frame.kfid,
+                        fe.current_pyramid if stereo else None,
+                        right_dev if stereo else None)
 
     def _process_estimator(self):
         new_kf = self.mapper.estimator.get_new_kf()
@@ -251,7 +255,8 @@ class SlamManager:
             if isinstance(rec.right_dev, np.ndarray):
                 rec.right_dev = self._to_device_image(rec.right_dev)
             use_fused_kf = (
-                self.params.fused_keyframe and rec.right_dev is not None
+                self.params.fused_keyframe and self.params.stereo
+                and rec.right_dev is not None
             )
             if use_fused_kf:
                 new_carry, self._pending_kf = (
@@ -264,10 +269,11 @@ class SlamManager:
                 for fid, time, image_dev, right_dev in replay:
                     fe.pipeline_dispatch(fid, image_dev, right_dev, time)
                 return
+            # A mono keyframe (no right image) takes the classic keyframe
+            # and resyncs the carry, as in the JAX package, whose async
+            # keyframe program needs stereo.
             self.map_manager.create_keyframe(rec.image_dev)
-            kf = KeyFrame(self.current_frame.kfid, fe.current_pyramid,
-                          rec.right_dev)
-            ok = self.mapper.process(kf)
+            ok = self.mapper.process(self._keyframe(fe, rec.right_dev))
             if self.params.reset_required:
                 self.reset()
                 return

@@ -15,7 +15,9 @@ carry_merge correction reconciles the rest.
 
 Detection suppression and NMS are `detect_suppress.suppress_and_nms`: the
 CUDA kernel K2 on a CUDA tensor, its plain version on a CPU tensor.
-Suppression stays before NMS. `keyframe_step_carry.launches` counts the
+Suppression stays before NMS. With `subpix` the detections are refined on
+the raw response (`features.subpixel_refine`, kernel K1), and with
+`stereo_1d` the stereo cascade runs the disparity-only LK level. `keyframe_step_carry.launches` counts the
 calls of this program, so a caller can hold the K2 launches against it.
 
 Not ported: the non-carry `keyframe_step` (reached with
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .detect_suppress import suppress_and_nms
+from .features import subpixel_refine
 from .frontend_step import _undistort_backproject
 from .image import _conv_grouped, gaussian_kernel_1d, lk_pyramid_impl
 from .lucas_kanade import fb_cascade
@@ -84,12 +87,13 @@ def _blur3(device):
 
 
 def _shi_tomasi_cells(pyr_left, px, occ_rows, *, pad, height, width,
-                      radius, min_response, cell_size):
+                      radius, min_response, cell_size, subpix=False):
     """Shi-Tomasi response -> occupancy suppression -> 3x3 NMS -> per-cell
     top-k (extractor.jl:63-95). Reuses the carry pyramid's Scharr gradients
     (computed before padding, so the crop equals gradients of the raw
     image); only the sigma-1 product blurs remain. Returns (vals, det_y,
-    det_x), each (n_cells, KF_TOPK)."""
+    det_x), each (n_cells, KF_TOPK); with `subpix` det_y, det_x are the
+    float32 refined positions."""
     iy = pyr_left[0]["Iy"][pad:pad + height, pad:pad + width]
     ix = pyr_left[0]["Ix"][pad:pad + height, pad:pad + width]
     prods = torch.stack([iy * iy, ix * ix, iy * ix])
@@ -99,6 +103,7 @@ def _shi_tomasi_cells(pyr_left, px, occ_rows, *, pad, height, width,
     disc = torch.sqrt(torch.square(0.5 * (sm[0] - sm[1]))
                       + torch.square(sm[2]))
     resp = half_tr - disc
+    resp_raw = resp
 
     # Occupancy suppression BEFORE the 3x3 NMS (the order is load-bearing),
     # both inside kernel K2.
@@ -120,6 +125,8 @@ def _shi_tomasi_cells(pyr_left, px, occ_rows, *, pad, height, width,
     cell_ids = torch.arange(gy * gx, device=resp.device)
     det_y = (cell_ids // gx)[:, None] * cell_size + idx // cell_size
     det_x = (cell_ids % gx)[:, None] * cell_size + idx % cell_size
+    if subpix:
+        return (vals,) + subpixel_refine(resp_raw, det_y, det_x)
     return vals, det_y, det_x
 
 
@@ -130,7 +137,8 @@ def keyframe_step_carry(carry, right_image, state, *, levels: int,
                         min_active: int = 0, cell_size: int = 35,
                         radius: int = 17, min_response: float = 1e-4,
                         height: int = 0, width: int = 0,
-                        threshold: float = 3.0):
+                        threshold: float = 3.0, stereo_1d: bool = False,
+                        subpix: bool = False):
     """One keyframe on the carry (the JAX program's arguments and results;
     `state` is the (cap + N_GROUPS + KS2_MISC_ROWS, 16) f32 upload).
     Returns (new_carry, per_slot (cap, 13), n_new (0-d int tensor))."""
@@ -195,6 +203,7 @@ def keyframe_step_carry(carry, right_image, state, *, levels: int,
     vals, det_y, det_x = _shi_tomasi_cells(
         pyr_left, px, valid, pad=pad, height=height, width=width,
         radius=radius, min_response=min_response, cell_size=cell_size,
+        subpix=subpix,
     )
     col = torch.arange(KF_TOPK, device=dev)[None, :].expand(vals.shape)
     admitted = (vals > min_response) & (col < n_cell_detect)
@@ -228,7 +237,7 @@ def keyframe_step_carry(carry, right_image, state, *, levels: int,
         pyr_left, pyr_right, px_full, prior_mask, disp, track_full,
         levels=levels, prior_level=1, window=window, iters=iters, eps=eps,
         eig_thresh=eig_thresh, pad=pad, max_distance=max_fb_distance,
-        min_active=min_active,
+        min_active=min_active, one_d=stereo_1d,
     )
     # Row-corrected right pixel (map_manager.jl:586-588).
     corrected = torch.stack([px_full[:, 0], tracked_px[:, 1]], dim=-1)

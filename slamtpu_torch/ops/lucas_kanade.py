@@ -3,17 +3,19 @@
 Port of the parts of slamtpu/ops/lucas_kanade.py that the port's paths
 run: `pinv2x2_sym`, the default level solver `_lk_level_patch_lanes`
 (patch-cached: the first image's 6-map window and the second image's
-(T+1+2R)^2 patch are gathered ONCE per level), `lk_flow`, and the
-compacted failed-prior retry cascade `fb_retry_compact` (= `fb_cascade` =
-`fb_track_merged`, the names the JAX package's callers use).
+(T+1+2R)^2 patch are gathered ONCE per level), the disparity-only level
+`_lk_level_lanes_1d` of rectified stereo (`Params.stereo_klt_1d`), `lk_flow`,
+and the compacted failed-prior retry cascade `fb_retry_compact` (=
+`fb_cascade` = `fb_track_merged`, the names the JAX package's callers use).
 
-The level solver is `lk_level`: a CPU tensor takes the plain version
-`lk_level_plain` (tensor ops, gathers by K1's plain version
-`gather_windows_plain`, one host sync per solver iteration for the stop
-rule); a CUDA tensor launches the hand-written level kernel
-slamtpu_torch/csrc/lk_level.cu (one cooperative launch per level: gathers
-into shared memory, the whole solver loop and its stop rule on the device)
-or raises. On the card the cascade therefore issues no host sync.
+The level solvers are `lk_level` (2-D) and `lk_level_1d`: a CPU tensor
+takes the plain version `lk_level_plain` / `lk_level_1d_plain` (tensor ops,
+gathers by K1's plain version `gather_windows_plain`, one host sync per
+solver iteration for the stop rule); a CUDA tensor launches the
+hand-written level kernel slamtpu_torch/csrc/lk_level.cu in its 2-D or 1-D
+mode (one cooperative launch per level: gathers into shared memory, the
+whole solver loop and its stop rule on the device) or raises. On the card
+the cascade therefore issues no host sync in either mode.
 
 Semantics kept exactly, because results depend on them:
   - the level loop stops when at most min(lk_min_active, sum(ok) // 32)
@@ -22,6 +24,8 @@ Semantics kept exactly, because results depend on them:
   - a level entered with no live point leaves flow and ok unchanged (the
     gate only clears bits and 0 > min(min_active, 0) is false), which is
     what the JAX `lax.cond(any(ok))` skip gives, without a host branch;
+    the 1-D level pins flow_y to 0 on every point even then, where the skip
+    keeps it: only flows of dead points differ, which no caller reads;
   - the retry compaction scatters the non-retried rows into a dump row
     RETRY_CAP that is then dropped.
 
@@ -225,13 +229,14 @@ def _check_level(d1, d2, p_lvl, flow, ok, hw, window, pad):
 
 def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
                   eig_thresh, pad, min_active: int = 0,
-                  escape_fail: bool = False, return_counts: bool = False):
-    """Launch the level kernel (no checks beyond the wrapper's). A grid
-    that cannot be resident at once is refused by the launch and raises.
-    With return_counts, also its (iters + 1) barrier words: word k holds
-    the grid's running count before iteration k in its bits above
-    LK_LEVEL_ARRIVE_BITS and, if that check ran, the arrived blocks below
-    them (see lk_level.cu)."""
+                  escape_fail: bool = False, return_counts: bool = False,
+                  one_d: bool = False):
+    """Launch the level kernel, in its 1-D mode with one_d (no checks
+    beyond the wrapper's). A grid that cannot be resident at once is
+    refused by the launch and raises. With return_counts, also its
+    (iters + 1) barrier words: word k holds the grid's running count
+    before iteration k in its bits above LK_LEVEL_ARRIVE_BITS and, if that
+    check ran, the arrived blocks below them (see lk_level.cu)."""
     stack, img = d1["stack"], d2["img"]
     n = p_lvl.shape[0]
     flow_out = torch.empty_like(flow)
@@ -246,14 +251,32 @@ def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
             flow.data_ptr(), ok.data_ptr(), flow_out.data_ptr(),
             ok_out.data_ptr(), counts.data_ptr(), stack.shape[1],
             stack.shape[2], n, int(h), int(w), int(window), int(iters),
-            int(pad), int(min_active), int(bool(escape_fail)), float(eps),
-            float(eig_thresh), kernels.stream_ptr(flow.device),
+            int(pad), int(min_active), int(bool(escape_fail)),
+            int(bool(one_d)), float(eps), float(eig_thresh),
+            kernels.stream_ptr(flow.device),
         )
         kernels.check(code, "slamtpu_lk_level")
-        lk_level.launches += 1
+        if one_d:
+            lk_level_1d.launches += 1
+        else:
+            lk_level.launches += 1
     if return_counts:
         return flow_out, ok_out, counts
     return flow_out, ok_out
+
+
+def _route_level(d1, d2, p_lvl, flow, ok, hw, window, pad) -> str:
+    """Check a level call's inputs; "cpu" for the plain version, "cuda" for
+    the kernel, raise for anything else."""
+    _check_level(d1, d2, p_lvl, flow, ok, hw, window, pad)
+    if flow.device.type == "cpu":
+        return "cpu"
+    if flow.device.type != "cuda":
+        raise RuntimeError(f"lk_level: unsupported device {flow.device}")
+    if not all(x.is_contiguous() for x in (d1["stack"], d2["img"], p_lvl,
+                                           flow, ok)):
+        raise ValueError("lk_level: inputs must be contiguous")
+    return "cuda"
 
 
 def lk_level(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
@@ -263,14 +286,8 @@ def lk_level(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
     kw = dict(hw=hw, window=window, iters=iters, eps=eps,
               eig_thresh=eig_thresh, pad=pad, min_active=min_active,
               escape_fail=escape_fail)
-    _check_level(d1, d2, p_lvl, flow, ok, hw, window, pad)
-    if flow.device.type == "cpu":
+    if _route_level(d1, d2, p_lvl, flow, ok, hw, window, pad) == "cpu":
         return lk_level_plain(d1, d2, p_lvl, flow, ok, **kw)
-    if flow.device.type != "cuda":
-        raise RuntimeError(f"lk_level: unsupported device {flow.device}")
-    if not all(x.is_contiguous() for x in (d1["stack"], d2["img"], p_lvl,
-                                           flow, ok)):
-        raise ValueError("lk_level: inputs must be contiguous")
     return lk_level_cuda(d1, d2, p_lvl, flow, ok, **kw)
 
 
@@ -283,20 +300,144 @@ lk_level.launches = 0
 LK_LEVEL_ARRIVE_BITS = 12
 
 
+def lk_level_1d_plain(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
+                      eig_thresh, pad, min_active: int = 0,
+                      escape_fail: bool = False):
+    """Plain PyTorch version of the disparity-only level for rectified
+    stereo (JAX `_lk_level_lanes_1d`): flow_y is pinned to 0, the step is
+    the scalar inv_sxx * b_x, the gate sxx / count >= eig_thresh, the patch
+    (T, P) keeps its rows at the template rows, sampling has 2 taps, and
+    escape, convergence and bounds act on x only. Same stop rule as the 2-D
+    level. No hand-written kernel runs in it, on any device.
+
+    p_lvl: (N, 2) int32 (y, x); flow: (N, 2) f32; ok: (N,) bool. Returns
+    (flow with flow_y = 0, ok).
+    """
+    H, W = hw
+    w = window
+    T = 2 * w + 1
+    R = LK_PATCH_MARGIN
+    P = T + 1 + 2 * R
+    n = p_lvl.shape[0]
+    dev = flow.device
+
+    flow = flow * torch.tensor([0.0, 1.0], dtype=torch.float32, device=dev)
+    start = p_lvl - w + pad
+    stack_w = gather_windows_plain(d1["stack"], start, T, T)  # (N,6,T,T)
+    img1_w, ix_w, gxx_w = stack_w[:, 0], stack_w[:, 2], stack_w[:, 4]
+
+    p_f = p_lvl.to(torch.float32)
+    px_f = p_f[:, 1]
+    hmax, wmax = float(H - 1), float(W - 1)
+    offs = torch.arange(-w, w + 1, dtype=torch.float32, device=dev)
+
+    # The row clamp depends on p only (y never moves).
+    up = torch.clamp(p_f[:, 0], max=float(w))
+    down = torch.clamp(hmax - p_f[:, 0], max=float(w))
+    my = ((offs[None, :] >= -up[:, None])
+          & (offs[None, :] <= down[:, None]))[:, :, None]   # (N, T, 1)
+
+    def window_mask(qx):
+        left = torch.floor(torch.clamp(torch.minimum(px_f, qx), max=float(w)))
+        right = torch.floor(torch.clamp(wmax - torch.maximum(px_f, qx),
+                                        max=float(w)))
+        mx = ((offs[None, :] >= -left[:, None])
+              & (offs[None, :] <= right[:, None]))[:, None, :]  # (N, 1, T)
+        return (my & mx).to(torch.float32)
+
+    def in_bounds_x(qx):
+        return (qx >= 0.0) & (qx <= wmax)
+
+    def wsum(x):
+        return torch.sum(x, dim=(1, 2))
+
+    qx0 = px_f + flow[:, 1]
+    qx0_safe = torch.where(in_bounds_x(qx0), qx0, px_f)
+    base_x = torch.floor(qx0_safe).to(torch.int32) - w - R + pad
+    patch = gather_windows_plain(
+        d2["img"][None], torch.stack([start[:, 0], base_x], dim=-1), T, P,
+    )[:, 0]                                                  # (N, T, P)
+
+    mask = window_mask(qx0_safe)
+    sxx = wsum(gxx_w * mask)
+    count = wsum(mask)
+    inv_sxx = torch.where(sxx > 1e-12, 1.0 / torch.clamp(sxx, min=1e-12),
+                          torch.zeros_like(sxx))
+    ok = ok & ((sxx / torch.clamp(count, min=1.0)) >= eig_thresh)
+
+    rows = torch.arange(n, device=dev)[:, None, None]
+    trow = torch.arange(T, device=dev)[None, :, None]
+    steps = torch.arange(T + 1, device=dev)
+
+    fx = flow[:, 1]
+    stop_thresh = min(min_active, int(ok.sum()) // 32)
+    running = ok.clone()
+    it = 0
+    while it < iters and int(running.sum()) > stop_thresh:
+        qx = px_f + fx
+        inb = in_bounds_x(qx)
+        fail = running & ~inb
+        qx_safe = torch.where(inb, qx, px_f)
+        qx_floor = torch.floor(qx_safe)
+        frac = (qx_safe - qx_floor)[:, None, None]
+        rel = qx_floor.to(torch.int32) - w + pad - base_x
+        escaped = (rel < 0) | (rel > 2 * R)
+        if escape_fail:
+            fail = fail | (running & escaped)
+        rel = torch.clamp(rel, 0, 2 * R).long()
+
+        big = patch[rows, trow, (rel[:, None] + steps)[:, None, :]]
+        img2_s = (1.0 - frac) * big[:, :, :T] + frac * big[:, :, 1:]
+        bx = wsum((img1_w - img2_s) * mask * ix_w)
+        step_x = inv_sxx * bx
+
+        converged = torch.abs(step_x) < eps
+        new_fx = fx + step_x
+        fail = fail | (running & ~converged & ~in_bounds_x(px_f + new_fx))
+
+        advance = running & ~fail & ~converged & ~escaped
+        fx = torch.where(advance, new_fx, fx)
+        ok = ok & ~fail
+        running = running & ok & ~converged & ~escaped
+        it += 1
+    return torch.stack([torch.zeros_like(fx), fx], dim=-1), ok
+
+
+def lk_level_1d(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
+                eig_thresh, pad, min_active: int = 0,
+                escape_fail: bool = False):
+    """One disparity-only pyramid level for all N points -> (flow, ok).
+    CPU tensors take lk_level_1d_plain; CUDA tensors launch the level
+    kernel's 1-D mode or raise."""
+    kw = dict(hw=hw, window=window, iters=iters, eps=eps,
+              eig_thresh=eig_thresh, pad=pad, min_active=min_active,
+              escape_fail=escape_fail)
+    if _route_level(d1, d2, p_lvl, flow, ok, hw, window, pad) == "cpu":
+        return lk_level_1d_plain(d1, d2, p_lvl, flow, ok, **kw)
+    return lk_level_cuda(d1, d2, p_lvl, flow, ok, one_d=True, **kw)
+
+
+# Launches of the level kernel's 1-D mode in this process; the CPU path
+# never counts.
+lk_level_1d.launches = 0
+
+
 def lk_flow(pyr1, pyr2, points, displacement, valid, *, levels, window,
             iters, eps, eig_thresh, pad, min_active: int = 0,
-            escape_fail: bool = False):
+            escape_fail: bool = False, one_d: bool = False):
     """Pyramidal LK for N points (reference lucas_kanade.jl:9-100).
 
     points: (N, 2) f32 full-resolution (y, x); displacement: (N, 2) prior
-    in COARSEST-level units. Returns (flow at level-0 scale, status).
+    in COARSEST-level units; one_d selects the disparity-only level.
+    Returns (flow at level-0 scale, status).
     """
+    level_fn = lk_level_1d if one_d else lk_level
     flow = displacement.to(torch.float32)
     ok = valid
     for level in range(levels, -1, -1):
         d1, d2 = pyr1[level], pyr2[level]
         p_lvl = torch.floor(points / (2.0 ** level)).to(torch.int32)
-        flow, ok = lk_level(
+        flow, ok = level_fn(
             d1, d2, p_lvl, flow, ok, hw=pyramid_level_shape(d1, pad),
             window=window, iters=iters, eps=eps, eig_thresh=eig_thresh,
             pad=pad, min_active=min_active, escape_fail=escape_fail,
@@ -309,17 +450,19 @@ def lk_flow(pyr1, pyr2, points, displacement, valid, *, levels, window,
 def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
                      *, levels, prior_level=1, window=9, iters=30, eps=1e-2,
                      eig_thresh=1e-4, pad=17, max_distance=1.0,
-                     min_active=0):
+                     min_active=0, one_d=False):
     """Forward-backward KLT for both tracking families + compacted retry.
 
     Plain points enter at the coarsest level; prior points are injected at
     `prior_level` with their displacement prior (map_manager.jl:458,466).
     Prior points whose forward-backward track failed are re-tracked as
     plain points in a RETRY_CAP-lane second cascade (map_manager.jl:
-    534-537); overflowing points simply fail.
+    534-537); overflowing points simply fail. one_d runs every level,
+    backward pass included, as the disparity-only level (rectified stereo).
 
     Returns (new_px, ok, tracked_with_prior).
     """
+    level_fn = lk_level_1d if one_d else lk_level
     level_kw = dict(window=window, iters=iters, eps=eps,
                     eig_thresh=eig_thresh, pad=pad)
 
@@ -333,7 +476,7 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
                 ok = ok | inject_mask
             d1, d2 = pyr_prev[level], pyr_cur[level]
             p_lvl = torch.floor(px_c / (2.0 ** level)).to(torch.int32)
-            flow, ok = lk_level(
+            flow, ok = level_fn(
                 d1, d2, p_lvl, flow, ok, hw=pyramid_level_shape(d1, pad),
                 min_active=min_active, **level_kw,
             )
@@ -344,7 +487,7 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
     def backward(px_c, flow_f, st):
         flow_b, bst = lk_flow(
             pyr_cur, pyr_prev, px_c + flow_f, -flow_f, st, levels=0,
-            min_active=min_active, escape_fail=True, **level_kw,
+            min_active=min_active, escape_fail=True, one_d=one_d, **level_kw,
         )
         return st & bst & (_norm2(flow_f + flow_b) < max_distance)
 

@@ -1,8 +1,10 @@
 """Multiview geometry: batched DLT triangulation and hypothesis-parallel
 essential-matrix RANSAC with pose recovery.
 
-Port of slamtpu/ops/mvg.py for the classic path: `sample_valid_indices`,
-`triangulate_points` / `triangulate_batch` and `essential_ransac` with the
+Port of slamtpu/ops/mvg.py: `sample_valid_indices`, `triangulate_points` /
+`triangulate_batch` and `essential_ransac` with both minimal solvers: the
+Nister five-point solver (ops/fivepoint.py; the default, as in the JAX
+package: mono initialization and `FrontEnd.compute_pose_5pt`) and the
 polished 8-point solver (five_point=False, what the per-frame epipolar
 filter runs). Hypotheses are drawn by Gumbel-max from the port's threefry
 twin (slamtpu_torch/random.py), so for the same key and mask the port
@@ -17,6 +19,7 @@ import math
 import torch
 
 from .. import random as trandom
+from .fivepoint import five_point_candidates
 from .smallalg import polar_rotation3x3, smallest_eigvec_psd
 
 
@@ -102,25 +105,30 @@ def _skew(v):
 
 def essential_ransac(pd_prev, pd_cur, px_prev, px_cur, valid, n, intrinsics,
                      key, *, hypotheses: int = 256, threshold: float = 3.0,
-                     five_point: bool = False):
-    """Essential-matrix RANSAC + relative pose recovery (8-point).
+                     five_point: bool = True):
+    """Essential-matrix RANSAC + relative pose recovery.
 
     pd_*: (N, 2) normalized (x, y); px_*: (N, 2) undistorted pixels for
     Sampson scoring; valid: (N,) bool; intrinsics: (4,) (fx, fy, cx, cy).
+    five_point=True (default): max(hypotheses // 8, 16) five-point samples,
+    each contributing every root slot of the solver as a hypothesis (an
+    invalid root scores -1). five_point=False: `hypotheses` 8-point samples.
     Returns dict E (3, 3), pose (4, 4) prev->cur ([R|t], unit t), inliers
     (N,) bool, n_inliers.
     """
     del n  # sampling is mask-driven
-    if five_point:
-        raise NotImplementedError(
-            "five-point essential RANSAC is not ported yet (ROADMAP Queue 1, "
-            "mono: ops/fivepoint.py)"
-        )
     dev = pd_prev.device
     f32 = torch.float32
-    M = hypotheses
-    idx = sample_valid_indices(key, valid, (M, 8))
-    E = _essential_from_8pt(pd_prev[idx], pd_cur[idx])  # (M, 3, 3)
+    if five_point:
+        m5 = max(hypotheses // 8, 16)
+        idx = sample_valid_indices(key, valid, (m5, 5))
+        Ec, ok_c = five_point_candidates(pd_prev[idx], pd_cur[idx], grid=32)
+        E = Ec.reshape(-1, 3, 3)
+        hyp_ok = ok_c.reshape(-1)
+    else:
+        idx = sample_valid_indices(key, valid, (hypotheses, 8))
+        E = _essential_from_8pt(pd_prev[idx], pd_cur[idx])  # (M, 3, 3)
+        hyp_ok = torch.ones(E.shape[0], dtype=torch.bool, device=dev)
 
     fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
     one, zero = torch.ones((), dtype=f32, device=dev), \
@@ -134,8 +142,10 @@ def essential_ransac(pd_prev, pd_cur, px_prev, px_cur, valid, n, intrinsics,
 
     err = _sampson_px(F, px_prev, px_cur)  # (M, N)
     inl = (err < threshold) & valid[None, :]
-    best = torch.argmax(torch.sum(inl, dim=1))
-    inliers0 = inl[best]
+    counts = torch.where(hyp_ok, torch.sum(inl, dim=1),
+                         torch.full_like(hyp_ok, -1, dtype=torch.int64))
+    best = torch.argmax(counts)
+    inliers0 = inl[best] & hyp_ok[best]
 
     # Least-squares polish on the winning hypothesis's inliers, rescored.
     Afull = _epipolar_rows(pd_prev, pd_cur) * inliers0[:, None].to(f32)

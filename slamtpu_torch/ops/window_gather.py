@@ -6,9 +6,10 @@ extraction) becomes the CUDA kernel slamtpu_torch/csrc/window_gather.cu.
 
 Contract: `gather_windows(src (C, H, W) f32, start (N, 2) int32, t1, t2)
 -> (N, C, t1, t2)` with out[i] = src[:, y:y + t1, x:x + t2] at the start
-clamped like lax.dynamic_slice into [0, H - t1] x [0, W - t2]. Starts must
-be non-negative (the LK callers never produce negative starts; the TPU and
-the CPU reference disagree on where negative starts go).
+clamped like lax.dynamic_slice into [0, H - t1] x [0, W - t2]. A negative
+start clamps to 0 in both versions (the JAX package sends it to the high
+end instead; no caller of either package passes one), so the wrapper reads
+no start values and never syncs the host.
 
 A CPU tensor takes the plain PyTorch version below; a CUDA tensor launches
 the kernel or raises.
@@ -23,8 +24,8 @@ from .. import kernels
 def gather_windows_plain(src, start, t1: int, t2: int):
     """Plain PyTorch version: one advanced-indexing gather."""
     c, h, w = src.shape
-    y0 = torch.clamp(start[:, 0].long(), max=h - t1)
-    x0 = torch.clamp(start[:, 1].long(), max=w - t2)
+    y0 = torch.clamp(start[:, 0].long(), 0, h - t1)
+    x0 = torch.clamp(start[:, 1].long(), 0, w - t2)
     ys = y0[:, None] + torch.arange(t1, device=src.device)      # (N, t1)
     xs = x0[:, None] + torch.arange(t2, device=src.device)      # (N, t2)
     out = src[:, ys[:, :, None], xs[:, None, :]]                 # (C,N,t1,t2)
@@ -46,8 +47,6 @@ def _check(src, start, t1, t2):
     _, h, w = src.shape
     if not (0 < t1 <= h and 0 < t2 <= w):
         raise ValueError(f"gather_windows: window {t1}x{t2} exceeds {h}x{w}")
-    if start.numel() and int(start.min()) < 0:
-        raise ValueError("gather_windows: negative start")
 
 
 def gather_windows_cuda(src, start, t1: int, t2: int):

@@ -54,11 +54,19 @@ def test_window_gather_matches_plain(c, h, w, t, n):
     assert torch.equal(out, wg.gather_windows_plain(src, start, t, t))
 
 
-def test_window_gather_rejects_negative_start():
-    src = torch.zeros((1, 40, 40), device="cuda")
-    start = torch.tensor([[-1, 0]], dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError):
-        wg.gather_windows(src, start, 5, 5)
+def test_window_gather_clamps_negative_start():
+    """Negative starts clamp to 0 in the kernel as in the plain version
+    (lax.dynamic_slice), with no host sync."""
+    src = torch.randn((1, 40, 40), generator=_gen(5)).cuda()
+    start = torch.tensor([[-1, 0], [3, -7], [-2, 50]], dtype=torch.int32,
+                         device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = wg.gather_windows(src, start, 5, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out, wg.gather_windows_plain(src, start, 5, 5))
+    assert torch.equal(out[0, 0], src[0, :5, :5])
 
 
 def _edge_points(h, w):
@@ -301,3 +309,151 @@ def test_fb_retry_compact_issues_no_host_sync():
     torch.cuda.synchronize()
     assert lk.lk_level.launches - before == 10  # 4 + 1 levels, twice
     assert new_px.shape == (n, 2) and int(ok.sum()) > n // 2
+
+
+# -- the level kernel's 1-D mode (rectified stereo) -------------------------
+
+@functools.lru_cache(maxsize=None)
+def _stereo_pyramids():
+    """Port pyramids of the left and right image of city-scene frame 0: the
+    keyframe program's stereo cascade inputs."""
+    scene = make_scene(n_frames=1, height=376, width=1241, n_points=6000,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    return tuple(lk_pyramid_impl(torch.from_numpy(im.astype(np.float32))
+                                 .cuda(), levels=3, pad=PAD)
+                 for im in scene.frame(0))
+
+
+def _level_1d_inputs(level, n, seed, dead=False):
+    pyr_l, pyr_r = _stereo_pyramids()
+    d1, d2 = pyr_l[level], pyr_r[level]
+    hw = pyramid_level_shape(d1, PAD)
+    rng = np.random.default_rng(seed)
+    px = np.stack([rng.uniform(0, 375, n), rng.uniform(0, 1240, n)], -1)
+    p_lvl = np.floor(px / 2.0 ** level).astype(np.int32)
+    flow = np.stack([rng.normal(0.0, 1.0, n),
+                     rng.normal(-6.0, 4.0, n) / 2.0 ** level],
+                    -1).astype(np.float32)
+    ok = np.zeros(n, bool) if dead else rng.uniform(size=n) < 0.9
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return d1, d2, t(p_lvl), t(flow), t(ok), hw
+
+
+@pytest.mark.parametrize("level", [0, 3])
+@pytest.mark.parametrize("n", [1024, 256])
+@pytest.mark.parametrize("min_active,escape_fail", [(0, False), (16, False),
+                                                    (16, True)])
+def test_lk_level_1d_matches_plain(level, n, min_active, escape_fail):
+    """ok masks agree on >= 99.5% of the points alive at entry; flows of
+    the points ok in both within 1e-3 px for >= 99% of them and within
+    2 * lk_epsilon for all (without the global stop, min_active 0, a point
+    whose step straddles lk_epsilon stops one iteration apart: only the
+    order of the window sums differs); flow_y is 0. One launch on the 1-D
+    counter, none on the 2-D one."""
+    d1, d2, p_lvl, flow, ok, hw = _level_1d_inputs(level, n, level + n)
+    kw = dict(hw=hw, window=9, iters=30, eps=1e-2, eig_thresh=1e-4, pad=PAD,
+              min_active=min_active, escape_fail=escape_fail)
+    before = (lk.lk_level.launches, lk.lk_level_1d.launches)
+    flow_k, ok_k = lk.lk_level_1d(d1, d2, p_lvl, flow, ok, **kw)
+    torch.cuda.synchronize()
+    assert (lk.lk_level.launches, lk.lk_level_1d.launches) == \
+        (before[0], before[1] + 1)
+    flow_p, ok_p = lk.lk_level_1d_plain(d1, d2, p_lvl, flow, ok, **kw)
+    alive = ok.cpu().numpy()
+    ok_kn, ok_pn = ok_k.cpu().numpy(), ok_p.cpu().numpy()
+    assert not ok_kn[~alive].any() and not ok_pn[~alive].any()
+    assert (ok_kn == ok_pn)[alive].mean() >= 0.995
+    both = ok_kn & ok_pn
+    d = np.abs(flow_k.cpu().numpy()[both] - flow_p.cpu().numpy()[both])
+    assert (d <= 1e-3).all(-1).mean() >= 0.99 and d.max() <= 2e-2, d.max()
+    assert not flow_k[:, 0].any()
+    # Dead points keep their flow x.
+    np.testing.assert_array_equal(flow_k.cpu().numpy()[~alive, 1],
+                                  flow.cpu().numpy()[~alive, 1])
+    assert ok_k.sum() > 0.3 * n
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_lk_level_1d_all_dead(level):
+    """No live point: ok stays all False, flow_x unchanged, flow_y 0, and
+    the kernel agrees with its plain version."""
+    d1, d2, p_lvl, flow, ok, hw = _level_1d_inputs(level, 1024, seed=5,
+                                                   dead=True)
+    kw = dict(hw=hw, window=9, iters=30, eps=1e-2, eig_thresh=1e-4, pad=PAD,
+              min_active=16)
+    flow_k, ok_k = lk.lk_level_1d(d1, d2, p_lvl, flow, ok, **kw)
+    flow_p, ok_p = lk.lk_level_1d_plain(d1, d2, p_lvl, flow, ok, **kw)
+    torch.cuda.synchronize()
+    assert not ok_k.any() and torch.equal(ok_k, ok_p)
+    assert torch.equal(flow_k, flow_p)
+    assert torch.equal(flow_k[:, 1], flow[:, 1])
+    assert not flow_k[:, 0].any()
+
+
+def test_fb_retry_compact_1d_issues_no_host_sync():
+    """The keyframe program's stereo cascade in 1-D mode (forward with
+    priors, backward, compacted retry) on CUDA tensors runs with
+    synchronizing calls turned into errors, entirely in the 1-D mode."""
+    pyr_l, pyr_r = _stereo_pyramids()
+    rng = np.random.default_rng(4)
+    n = 1024
+    px = np.stack([rng.uniform(20, 356, n), rng.uniform(40, 1221, n)], -1)
+    prior = rng.uniform(size=n) < 0.5
+    disp = np.stack([np.zeros(n), rng.normal(-8.0, 4.0, n)], -1).astype(
+        np.float32)
+    valid = rng.uniform(size=n) < 0.95
+    args = [torch.from_numpy(a).cuda() for a in
+            (px.astype(np.float32), prior, disp, valid)]
+    kw = dict(levels=3, prior_level=1, window=9, iters=30, eps=1e-2,
+              eig_thresh=1e-4, pad=PAD, max_distance=1.0, min_active=16,
+              one_d=True)
+    lk.fb_retry_compact(pyr_l, pyr_r, *args, **kw)   # build and warm up
+    torch.cuda.synchronize()
+    before = (lk.lk_level.launches, lk.lk_level_1d.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new_px, ok, _ = lk.fb_retry_compact(pyr_l, pyr_r, *args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert lk.lk_level.launches == before[0]
+    assert lk.lk_level_1d.launches - before[1] == 10  # 4 + 1 levels, twice
+    ok_np = ok.cpu().numpy()
+    assert new_px.shape == (n, 2) and ok_np.sum() > n // 4
+    # Rectified: rows stay the template rows.
+    np.testing.assert_array_equal(new_px.cpu().numpy()[ok_np, 0],
+                                  px.astype(np.float32)[ok_np, 0])
+
+
+def test_subpixel_windows_match_plain():
+    """K1 at the subpixel-refinement shape: 3x3 windows of a 376 x 1241
+    response at 11 * 36 cells x 8 detections, starts clamped into the map
+    (no host sync); equal to the plain version,
+    and the refinement within 1e-6 px of the one on the CPU."""
+    from slamtpu_torch.ops import features
+
+    g = _gen(11)
+    resp = (torch.rand((376, 1241), generator=g) * 1e-2).cuda()
+    n_cells = 11 * 36
+    ys = torch.randint(0, 376, (n_cells, 8), generator=g).to(torch.int32)
+    xs = torch.randint(0, 1241, (n_cells, 8), generator=g).to(torch.int32)
+    ys[0, :4] = torch.tensor([0, 375, 0, 375], dtype=torch.int32)
+    xs[0, :4] = torch.tensor([0, 1240, 1240, 0], dtype=torch.int32)
+    ys, xs = ys.cuda(), xs.cuda()
+    start = torch.stack([torch.clamp(ys.reshape(-1) - 1, 0, 373),
+                         torch.clamp(xs.reshape(-1) - 1, 0, 1238)],
+                        dim=-1).contiguous()
+    before = wg.gather_windows.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = wg.gather_windows(resp[None], start, 3, 3)
+        y_k, x_k = features.subpixel_refine(resp, ys, xs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert wg.gather_windows.launches == before + 2
+    assert out.shape == (n_cells * 8, 1, 3, 3)
+    assert torch.equal(out, wg.gather_windows_plain(resp[None], start, 3, 3))
+    y_p, x_p = features.subpixel_refine(resp.cpu(), ys.cpu(), xs.cpu())
+    np.testing.assert_allclose(y_k.cpu().numpy(), y_p.numpy(), atol=1e-6)
+    np.testing.assert_allclose(x_k.cpu().numpy(), x_p.numpy(), atol=1e-6)

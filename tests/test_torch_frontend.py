@@ -80,7 +80,7 @@ def test_essential_ransac_matches_jax(seed):
     rj = j_ess(*ja, n, jnp.asarray(intr), np.array(key, np.uint32),
                hypotheses=128, threshold=3.0, five_point=False)
     rt = t_ess(*ta, n, torch.from_numpy(intr), key, hypotheses=128,
-               threshold=3.0)
+               threshold=3.0, five_point=False)
     np.testing.assert_array_equal(rt["inliers"].numpy(),
                                   np.asarray(rj["inliers"]))
     assert int(rt["n_inliers"]) == int(rj["n_inliers"])

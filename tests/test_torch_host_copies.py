@@ -154,3 +154,20 @@ def test_stage_timers_are_the_ports_own():
     assert tprof.TIMERS.summary()["probe"]["calls"] == 1
     assert "probe" not in jprof.TIMERS.summary()
     assert not hasattr(tprof, "device_trace")
+
+
+def test_demo_gif_matches_jax():
+    """The port's copy of the real-imagery loader: the same frames and the
+    same scaled KITTI camera as the JAX package's."""
+    import slamtpu.datasets.demo_gif as jdemo
+    import slamtpu_torch.datasets.demo_gif as tdemo
+
+    for name in ("PANEL_ROWS", "PANEL_COLS", "KITTI_FX", "KITTI_FY",
+                 "KITTI_CX", "KITTI_CY", "KITTI_W", "KITTI_H"):
+        assert getattr(tdemo, name) == getattr(jdemo, name), name
+    np.testing.assert_array_equal(tdemo.load_demo_frames(),
+                                  jdemo.load_demo_frames())
+    jc, tc = jdemo.demo_camera(), tdemo.demo_camera()
+    assert isinstance(tc, tcam.Camera)
+    np.testing.assert_array_equal(tc.K, jc.K)
+    assert (tc.height, tc.width) == (jc.height, jc.width)

@@ -169,3 +169,95 @@ def test_level_with_no_live_point_is_unchanged(min_active, escape_fail):
                         escape_fail=escape_fail)
     assert torch.equal(ft, flow * 4.0)
     assert not okt.any()
+
+
+# -- the disparity-only (1-D) level of rectified stereo ----------------------
+
+def _stereo_pair_pyramids(levels=3):
+    """Both packages' pyramids of the left and right image of a rectified
+    synthetic stereo frame (160 x 224, baseline 0.5)."""
+    from slamtpu.datasets.synthetic import make_scene
+
+    scene = make_scene(n_frames=1, height=160, width=224, n_points=900,
+                       stereo=True, baseline=0.5, seed=9)
+    left, right = scene.frame(0)
+    pad = lk_pad(9)
+    jp = [j_pyramid(jnp.asarray(im), levels=levels, pad=pad)
+          for im in (left, right)]
+    tp = [t_pyramid(torch.from_numpy(im), levels=levels, pad=pad)
+          for im in (left, right)]
+    return jp, tp, pad
+
+
+@pytest.mark.parametrize("level", [0, 2, 3])
+@pytest.mark.parametrize("min_active,escape_fail", [(16, False), (0, True)])
+def test_lk_level_1d_matches_jax(level, min_active, escape_fail):
+    """lk_level_1d (its plain version on the CPU) against the JAX 1-D level
+    `_lk_level_lanes_1d`: ok equal, flows within 1e-4 px (float32 window
+    sums in another order), flow_y pinned to 0."""
+    from slamtpu.ops.lucas_kanade import _lk_level_lanes_1d as j_level_1d
+    from slamtpu_torch.ops.image import pyramid_level_shape
+    from slamtpu_torch.ops.lucas_kanade import lk_level, lk_level_1d
+
+    jp, tp, pad = _stereo_pair_pyramids()
+    rng = np.random.default_rng(10 + level)
+    n = 256
+    px = np.stack([rng.uniform(0, 159, n), rng.uniform(0, 223, n)], -1)
+    p_lvl = np.floor(px / 2.0 ** level).astype(np.int32)
+    flow = np.stack([rng.normal(0, 1, n), rng.normal(-2, 2, n)],
+                    -1).astype(np.float32)
+    ok = rng.uniform(size=n) < 0.9
+    kw = dict(hw=pyramid_level_shape(tp[0][level], pad), window=9, iters=30,
+              eps=1e-2, eig_thresh=1e-4, pad=pad, min_active=min_active,
+              escape_fail=escape_fail)
+    fj, okj = (np.asarray(a) for a in j_level_1d(
+        jp[0][level], jp[1][level], jnp.asarray(p_lvl), jnp.asarray(flow),
+        jnp.asarray(ok), **kw))
+    before = (lk_level.launches, lk_level_1d.launches)
+    ft, okt = (a.numpy() for a in lk_level_1d(
+        tp[0][level], tp[1][level], torch.from_numpy(p_lvl),
+        torch.from_numpy(flow), torch.from_numpy(ok), **kw))
+    assert (lk_level.launches, lk_level_1d.launches) == before  # CPU
+    np.testing.assert_array_equal(okt, okj)
+    assert okt.sum() > n // 2
+    np.testing.assert_allclose(ft[okt], fj[okj], rtol=0, atol=1e-4)
+    assert not ft[:, 0].any()
+
+
+def test_fb_retry_compact_1d_matches_jax():
+    """The whole stereo cascade in 1-D mode (forward with priors injected
+    at level 1, backward with escape_fail, compacted retry): ok and the
+    tracked-with-prior mask equal; tracked pixels within 1e-4 px for 99% of
+    the ok points and within lk_epsilon = 1e-2 px for all (a point whose
+    loop stops one iteration apart over the five levels)."""
+    from slamtpu.ops.lucas_kanade import fb_retry_compact as j_fb_retry
+    from slamtpu_torch.ops.lucas_kanade import fb_retry_compact, lk_level_1d
+
+    jp, tp, pad = _stereo_pair_pyramids()
+    rng = np.random.default_rng(3)
+    n = 300
+    px = np.stack([rng.uniform(10, 150, n), rng.uniform(30, 214, n)],
+                  -1).astype(np.float32)
+    prior = rng.uniform(size=n) < 0.4
+    disp = np.stack([np.zeros(n), rng.normal(-4, 3, n)], -1).astype(
+        np.float32)
+    valid = rng.uniform(size=n) < 0.95
+    kw = dict(levels=3, prior_level=1, window=9, iters=30, eps=1e-2,
+              eig_thresh=1e-4, pad=pad, max_distance=1.0, min_active=16,
+              one_d=True)
+    jr = [np.asarray(a) for a in j_fb_retry(
+        jp[0], jp[1], jnp.asarray(px), jnp.asarray(prior),
+        jnp.asarray(disp), jnp.asarray(valid), **kw)]
+    before = lk_level_1d.launches
+    tr = [a.numpy() for a in fb_retry_compact(
+        tp[0], tp[1], torch.from_numpy(px), torch.from_numpy(prior),
+        torch.from_numpy(disp), torch.from_numpy(valid), **kw)]
+    assert lk_level_1d.launches == before  # CPU: the plain version
+    np.testing.assert_array_equal(tr[1], jr[1])
+    np.testing.assert_array_equal(tr[2], jr[2])
+    ok = tr[1]
+    assert ok.sum() > n // 3
+    d = np.abs(tr[0][ok] - jr[0][ok]).max(-1)
+    assert (d <= 1e-4).mean() >= 0.99 and d.max() <= 1e-2, d.max()
+    # Rectified: the tracked row stays the template row.
+    np.testing.assert_array_equal(tr[0][ok, 0], px[ok, 0])

@@ -43,8 +43,9 @@ def _xla_tail(resp, yx, valid, radius, min_response):
 def test_gather_windows_matches_dynamic_slice(shape, t):
     rng = np.random.default_rng(3)
     src = rng.standard_normal(shape).astype(np.float32)
-    # Starts beyond the high edge exercise the clamp; the port rejects
-    # negative starts (tested below), so the low end is clipped at 0.
+    # Starts beyond the high edge exercise the clamp. Negative starts go to
+    # 0 in the port and to the high end in the JAX package (tested below),
+    # so the low end is clipped at 0.
     start = np.clip(
         rng.integers(-10, max(shape[1], shape[2]) + 10, size=(53, 2)), 0, None
     ).astype(np.int32)
@@ -68,10 +69,11 @@ def test_gather_windows_span_cases():
 
 
 def test_gather_windows_checks_inputs():
-    src = torch.zeros((1, 20, 20))
-    with pytest.raises(ValueError, match="negative"):
-        wg.gather_windows(src, torch.tensor([[-1, 0]], dtype=torch.int32),
-                          5, 5)
+    src = torch.arange(400, dtype=torch.float32).reshape(1, 20, 20)
+    # A negative start is no error: it clamps to 0 (no caller passes one).
+    out = wg.gather_windows(src, torch.tensor([[-1, 0]], dtype=torch.int32),
+                            5, 5)
+    assert torch.equal(out[0, 0], src[0, :5, :5])
     with pytest.raises(TypeError):
         wg.gather_windows(src, torch.tensor([[1, 0]]), 5, 5)  # int64
     with pytest.raises(ValueError):

@@ -33,24 +33,36 @@ def captured():
     return capture_pipelined_run()
 
 
-def _port_kw(kw):
-    """The JAX call's keywords minus the two options the port refuses
-    (stereo_klt_1d and subpixel_detect, both off by default)."""
-    kw = dict(kw)
-    assert not kw.pop("stereo_1d") and not kw.pop("subpix")
-    return kw
-
-
-def _run_kf(c):
+def _run_kf(c, **overrides):
+    """The port's keyframe program on a captured call (the JAX call's own
+    keywords, stereo_1d and subpix included, with `overrides`)."""
     carry = torch_carry(c["carry"])
     out = tks.keyframe_step_carry(
         carry, torch.from_numpy(np.array(c["right"])),
-        torch.from_numpy(c["state"]), **_port_kw(c["kw"]))
+        torch.from_numpy(c["state"]), **{**c["kw"], **overrides})
     return carry, out
+
+
+def _jax_kf(c, **overrides):
+    """The JAX keyframe program on the same captured call."""
+    import jax.numpy as jnp
+    from slamtpu.ops import keyframe_step as jks
+
+    carry = {"pyr": tuple({k: jnp.asarray(v) for k, v in lv.items()}
+                          for lv in c["carry"]["pyr"]),
+             "kp": jnp.asarray(c["carry"]["kp"]),
+             "misc": jnp.asarray(c["carry"]["misc"])}
+    new_carry, per_slot, n_new = jks.keyframe_step_carry(
+        carry, jnp.asarray(c["right"]), jnp.asarray(c["state"]),
+        **{**c["kw"], **overrides})
+    return ({"kp": np.asarray(new_carry["kp"]),
+             "misc": np.asarray(new_carry["misc"])},
+            np.asarray(per_slot), int(n_new))
 
 
 def test_keyframe_step_carry_matches_jax(captured):
     c = captured["kf"][0]
+    assert not c["kw"]["stereo_1d"] and not c["kw"]["subpix"]
     before = tks.keyframe_step_carry.launches
     _, (carry_out, per_slot, n_new) = _run_kf(c)
     assert tks.keyframe_step_carry.launches == before + 1
@@ -126,7 +138,41 @@ def test_keyframe_step_carry_leaves_its_carry_unchanged(captured):
     kp, misc = carry["kp"].clone(), carry["misc"].clone()
     new_carry, _, _ = tks.keyframe_step_carry(
         carry, torch.from_numpy(np.array(c["right"])),
-        torch.from_numpy(c["state"]), **_port_kw(c["kw"]))
+        torch.from_numpy(c["state"]), **c["kw"])
     assert torch.equal(carry["kp"], kp) and torch.equal(carry["misc"], misc)
     assert new_carry["pyr"] is carry["pyr"]
     assert new_carry["kp"].data_ptr() != carry["kp"].data_ptr()
+
+
+def test_keyframe_step_carry_1d_subpix_matches_jax(captured):
+    """stereo_1d=True and subpix=True on the captured call, through both
+    packages: the admitted detections are subpixel positions (within 1e-4
+    px, the bound of tests/test_torch_features.py) in the same slots, the
+    stereo cascade runs the 1-D level (row-corrected pixels: rows equal,
+    columns within 1e-3 px for 98% of the ok slots and lk_epsilon for all),
+    and the masks and DLT points hold the bounds of the default call."""
+    c = captured["kf"][0]
+    kw = dict(stereo_1d=True, subpix=True)
+    carry_j, ref, n_new_j = _jax_kf(c, **kw)
+    _, (carry_out, per_slot, n_new) = _run_kf(c, **kw)
+    per_slot = per_slot.numpy()
+    cap = per_slot.shape[0]
+
+    assert int(n_new) == n_new_j > 0
+    free = c["state"][:cap, tks.KS2_FREE].astype(np.int64)[:n_new_j]
+    det = per_slot[free, 0:2]
+    np.testing.assert_allclose(det, ref[free, 0:2], rtol=0, atol=1e-4)
+    assert (np.abs(det - np.round(det)) > 1e-3).any()  # refined
+
+    np.testing.assert_array_equal(per_slot[:, 4], ref[:, 4])
+    np.testing.assert_array_equal(per_slot[:, 12], ref[:, 12])
+    ok = ref[:, 4] > 0
+    assert ok.sum() > 100
+    d = np.abs(per_slot[ok, 2:4] - ref[ok, 2:4]).max(-1)
+    assert (d <= 1e-3).mean() > 0.98 and d.max() <= 1e-2
+    np.testing.assert_allclose(per_slot[ok, 5:8], ref[ok, 5:8], rtol=1e-2,
+                               atol=1e-3)
+    kp = carry_out["kp"].numpy()
+    np.testing.assert_array_equal(kp[:, 9], carry_j["kp"][:, 9])
+    np.testing.assert_allclose(carry_out["misc"].numpy(), carry_j["misc"],
+                               atol=1e-5)
