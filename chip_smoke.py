@@ -54,7 +54,23 @@ Phases, one line each; any failure raises and exits nonzero:
      stereo cascade under set_sync_debug_mode("error"); asserts no reset,
      6 to 10 keyframes, metric ATE <= 2x the JAX package's CPU run +
      0.01 m, standalone K1 and K2 launched at least once per keyframe
-     program and the 1-D mode launched.
+     program and the 1-D mode launched;
+  10-13. every other sequential route, each on the 30-frame city scene
+     through add_stereo_image + finish() with Params(stereo=True) and:
+     10 async_keyframe=False (the synchronous keyframe program
+     keyframe_step: >= 3 of them, K2 at least once each); 11
+     speculate_keyframes=True (>= 3 adopts by carry_adopt_kf; its FPS is
+     printed beside phase 6's); 12 do_local_matching=True (BRIEF: >= 676
+     map points with a descriptor, >= 50 merges); 13 fused_front_end=False,
+     fused_stereo=False, do_local_matching=True (the reference's shape: no
+     pipelined dispatch, >= 25 KLT calls, >= 4 unfused stereo matchings,
+     >= 687 descriptors). Each asserts no reset, keyframes within 2 of the
+     JAX package's CPU run and metric ATE <= 2x its ATE + 0.01 m
+     (JAX_ROUTES), the 2-D level kernel and K2 launched and standalone K1
+     and the 1-D mode not, every keyframe program's stereo cascade and
+     every carry_adopt_kf free of host syncs (set_sync_debug_mode
+     "error"); prints the FPS after 5 frames, the stage timers and the
+     launch counts.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -67,6 +83,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -147,6 +164,35 @@ def _bound(nbytes: float, flops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@functools.lru_cache(maxsize=2)
+def _city_scene(n_frames: int):
+    """bench.py's city scene cut to n_frames, and its (left, right)
+    frames."""
+    from slamtpu_torch.datasets.synthetic import make_scene
+
+    scene = make_scene(n_frames=n_frames, height=376, width=1241,
+                       n_points=6000, stereo=True, baseline=0.54, seed=7,
+                       layout="city")
+    return scene, [scene.frame(i) for i in range(len(scene))]
+
+
+def _no_sync(fn, record):
+    """fn with synchronizing CUDA calls turned into errors; each call
+    appends 1 to `record`."""
+    import torch
+
+    def wrapped(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        record.append(1)
+        return out
+
+    return wrapped
 
 
 def phase_k1(dev):
@@ -573,13 +619,10 @@ def phase_main_path(dev):
     import torch
 
     from slamtpu_torch import Params, ReplaySaver, SlamManager
-    from slamtpu_torch.datasets.synthetic import make_scene
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.utils.profiling import TIMERS
 
-    scene = make_scene(n_frames=30, height=376, width=1241, n_points=6000,
-                       stereo=True, baseline=0.54, seed=7, layout="city")
-    frames = [scene.frame(i) for i in range(len(scene))]
+    scene, frames = _city_scene(30)
     params = Params(stereo=True, pipelined=False,
                     do_local_bundle_adjustment=False)
     saver = ReplaySaver()
@@ -639,16 +682,13 @@ def phase_default_path(dev):
     import torch
 
     from slamtpu_torch import Params, ReplaySaver, SlamManager
-    from slamtpu_torch.datasets.synthetic import make_scene
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.models import estimator as est_mod
     from slamtpu_torch.ops import frontend_step as fs_mod
     from slamtpu_torch.ops.keyframe_step import keyframe_step_carry
     from slamtpu_torch.utils.profiling import TIMERS
 
-    scene = make_scene(n_frames=60, height=376, width=1241, n_points=6000,
-                       stereo=True, baseline=0.54, seed=7, layout="city")
-    frames = [scene.frame(i) for i in range(len(scene))]
+    scene, frames = _city_scene(60)
     params = Params(stereo=True)
     saver = ReplaySaver()
     sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
@@ -666,18 +706,8 @@ def phase_default_path(dev):
     # into errors: the cascade must issue no host sync.
     cascade_orig = fs_mod.fb_cascade
     no_sync_cascades = []
-
-    def cascade_no_sync(*args, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = cascade_orig(*args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        no_sync_cascades.append(1)
-        return out
-
     est_mod.local_bundle_adjustment_packed = ba_spy
-    fs_mod.fb_cascade = cascade_no_sync
+    fs_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
     TIMERS.reset()
     _reset_counts()
     keyframe_step_carry.launches = 0
@@ -708,6 +738,7 @@ def phase_default_path(dev):
     path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
     n_kf = sm.map_manager.nb_keyframes
     fps = (len(frames) - warm) / (t1 - t_warm)
+    FPS["default"] = fps
     summary = TIMERS.summary()
 
     def calls(stage):
@@ -797,14 +828,12 @@ def phase_mono_path(dev):
     import torch
 
     from slamtpu_torch import Params, ReplaySaver, SlamManager
-    from slamtpu_torch.datasets.synthetic import make_scene
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.ops.fivepoint import five_point_candidates
     from slamtpu_torch.utils.profiling import TIMERS
 
-    scene = make_scene(n_frames=60, height=376, width=1241, n_points=6000,
-                       stereo=True, baseline=0.54, seed=7, layout="city")
-    frames = [scene.frame(i)[0] for i in range(len(scene))]
+    scene, stereo_frames = _city_scene(60)
+    frames = [left for left, _ in stereo_frames]
     params = Params(stereo=False)
     saver = ReplaySaver()
     sm = SlamManager(params, scene.camera, slam_io=saver, device=dev)
@@ -943,13 +972,10 @@ def phase_variant_path(dev):
     import torch
 
     from slamtpu_torch import Params, ReplaySaver, SlamManager
-    from slamtpu_torch.datasets.synthetic import make_scene
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.ops import keyframe_step as ks_mod
 
-    scene = make_scene(n_frames=30, height=376, width=1241, n_points=6000,
-                       stereo=True, baseline=0.54, seed=7, layout="city")
-    frames = [scene.frame(i) for i in range(len(scene))]
+    scene, frames = _city_scene(30)
     params = Params(stereo=True, stereo_klt_1d=True, subpixel_detect=True)
     saver = ReplaySaver()
     sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
@@ -1021,6 +1047,199 @@ def phase_variant_path(dev):
     return launches
 
 
+# The JAX package's CPU runs of phases 10-13's scene and Params
+# (scripts/cpu_path_reference.py jax nocarry|speculate|brief|reference;
+# PERF.md): keyframes and metric ATE. Limits: R +- 2 keyframes, 2 R +
+# 0.01 m.
+JAX_ROUTES = {
+    "nocarry": (6, 0.00876),
+    "speculate": (7, 0.01761),
+    "brief": (6, 0.01663),
+    "reference": (6, 0.01203),
+}
+
+# FPS of the paths of this run, for phases that print theirs beside
+# another's.
+FPS = {}
+
+
+def _stereo_route(dev, route, **overrides):
+    """The 30-frame stereo city scene through add_stereo_image + finish()
+    with Params(stereo=True, **overrides); every stereo cascade of either
+    keyframe program and every carry_adopt_kf under sync debug mode "error".
+    Checks no reset, keyframes and metric ATE against JAX_ROUTES[route], and
+    the path's kernels; prints the FPS after 5 frames, the engagement, the
+    stage timers and the launch counts. Returns the run's record."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.eval.ate import ate_rmse
+    from slamtpu_torch.ops import keyframe_step as ks_mod
+    from slamtpu_torch.ops import track_step as ts_mod
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    scene, frames = _city_scene(30)
+    params = Params(stereo=True, **overrides)
+    saver = ReplaySaver()
+    sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
+                     slam_io=saver, device=dev)
+    resets = _counting_resets(sm)
+    merges = [0]
+    merge_orig = sm.map_manager.merge_mappoints
+
+    def merge_counted(prev_id, new_id):
+        merges[0] += 1
+        merge_orig(prev_id, new_id)
+
+    sm.map_manager.merge_mappoints = merge_counted
+    cascade_orig, adopt_orig = ks_mod.fb_cascade, ts_mod.carry_adopt_kf
+    no_sync_cascades, no_sync_adopts = [], []
+    ks_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
+    ts_mod.carry_adopt_kf = _no_sync(adopt_orig, no_sync_adopts)
+    TIMERS.reset()
+    _reset_counts()
+    ks_mod.keyframe_step.launches = 0
+    ks_mod.keyframe_step_carry.launches = 0
+    warm = 5
+    t_warm = None
+    t0 = time.perf_counter()
+    try:
+        for i, (left, right) in enumerate(frames):
+            if i == warm:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            sm.add_stereo_image(left, right, float(scene.timestamps[i]))
+        sm.finish()
+        torch.cuda.synchronize()
+    finally:
+        ks_mod.fb_cascade = cascade_orig
+        ts_mod.carry_adopt_kf = adopt_orig
+    t1 = time.perf_counter()
+    launches = _read_counts()
+
+    est = saver.trajectory_xyz().astype(np.float64)
+    gt = np.stack([p[:3, 3] for p in scene.poses_wc])
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"{route}: trajectory {est.shape} not finite / "
+                             f"not {gt.shape}")
+    summary = TIMERS.summary()
+    rec = dict(
+        sm=sm, launches=launches, summary=summary,
+        ate=ate_rmse(est, gt, align_scale=False),
+        path=float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1))),
+        keyframes=sm.map_manager.nb_keyframes,
+        keyframe_ids=sorted(f.id for f in sm.map_manager.frames_map.values()),
+        points_3d=sum(1 for mp in sm.map_manager.map_points.values()
+                      if mp.is_3d),
+        descriptors=sum(1 for mp in sm.map_manager.map_points.values()
+                        if mp.descriptor is not None),
+        merges=merges[0], adopts=sm.front_end._n_kf_adopts,
+        kf_programs=ks_mod.keyframe_step.launches,
+        kf_carry_programs=ks_mod.keyframe_step_carry.launches,
+        cascades_without_sync=len(no_sync_cascades),
+        adopts_without_sync=len(no_sync_adopts),
+        fps=(len(frames) - warm) / (t1 - t_warm))
+    FPS[route] = rec["fps"]
+
+    def calls(stage):
+        return summary.get(stage, {}).get("calls", 0)
+
+    rec["calls"] = calls
+    _log(route, frames=len(frames), fps_after_5=f"{rec['fps']:.3f}",
+         total_s=f"{t1 - t0:.3f}", keyframes=rec["keyframes"],
+         keyframe_ids=",".join(map(str, rec["keyframe_ids"])),
+         resets=resets["n"], ate_m=f"{rec['ate']:.5f}",
+         path_m=f"{rec['path']:.3f}", points_3d=rec["points_3d"],
+         dispatches=calls("fe.pipe.dispatch"), resyncs=calls("fe.resync"),
+         kf_fused=calls("mp.kf_fused"),
+         kf_async=calls("mp.kf_async.dispatch"), adopts=rec["adopts"],
+         klt=calls("fe.klt"), stereo_match=calls("mp.stereo_match"),
+         descriptors=rec["descriptors"], merges=rec["merges"],
+         ba_applied=calls("es.ba_apply"),
+         keyframe_programs=rec["kf_programs"],
+         carry_keyframe_programs=rec["kf_carry_programs"],
+         stereo_cascades_without_sync=rec["cascades_without_sync"],
+         adopts_without_sync=rec["adopts_without_sync"],
+         launches=json.dumps(launches, separators=(",", ":")))
+    print(f"[{route}] stage_timers " + json.dumps(_stage_summary(
+        summary, ("fe.", "mp.", "es.ba", "ex.", "mm.", "sm."))), flush=True)
+
+    if resets["n"]:
+        raise AssertionError(f"{resets['n']} reset(s) on the {route} path")
+    ref_kfs, ref_ate = JAX_ROUTES[route]
+    if abs(rec["keyframes"] - ref_kfs) > 2:
+        raise AssertionError(f"{route}: {rec['keyframes']} keyframes, "
+                             f"expected {ref_kfs} +- 2")
+    ate_bound = 2.0 * ref_ate + 0.01
+    if not rec["ate"] <= ate_bound:
+        raise AssertionError(f"{route}: metric ATE {rec['ate']:.4f} m > "
+                             f"{ate_bound:.4f} m")
+    _check_path_kernels(route, launches)
+    programs = rec["kf_programs"] + rec["kf_carry_programs"]
+    if rec["cascades_without_sync"] != programs:
+        raise AssertionError(f"{route}: {rec['cascades_without_sync']} "
+                             "stereo cascades ran under sync debug mode for "
+                             f"{programs} keyframe programs")
+    if rec["adopts_without_sync"] != rec["adopts"]:
+        raise AssertionError(f"{route}: {rec['adopts_without_sync']} of "
+                             f"{rec['adopts']} adopts ran under sync debug "
+                             "mode")
+    return rec
+
+
+def phase_nocarry_path(dev):
+    """Phase 10: the synchronous keyframe program (async_keyframe=False)."""
+    rec = _stereo_route(dev, "nocarry", async_keyframe=False)
+    n = rec["calls"]("mp.kf_fused")
+    if not (n >= 3 and rec["kf_programs"] == n
+            and rec["launches"]["suppress_nms"] >= n):
+        raise AssertionError(f"nocarry: {n} synchronous keyframes, "
+                             f"{rec['kf_programs']} keyframe_step calls, "
+                             f"K2 {rec['launches']['suppress_nms']}")
+    if rec["kf_carry_programs"]:
+        raise AssertionError("nocarry: the carry keyframe program ran")
+    return rec["launches"]
+
+
+def phase_speculate_path(dev):
+    """Phase 11: speculation through keyframes (speculate_keyframes=True)."""
+    rec = _stereo_route(dev, "speculate", speculate_keyframes=True)
+    if rec["adopts"] < 3:
+        raise AssertionError(f"speculate: {rec['adopts']} adopts, "
+                             "expected >= 3")
+    _log("speculate", fps_after_5=f"{rec['fps']:.3f}",
+         default_path_fps_after_15=f"{FPS['default']:.3f}")
+    return rec["launches"]
+
+
+def phase_brief_path(dev):
+    """Phase 12: BRIEF local-map matching (do_local_matching=True)."""
+    rec = _stereo_route(dev, "brief", do_local_matching=True)
+    if rec["descriptors"] < 676 or rec["merges"] < 50:
+        raise AssertionError(f"brief: {rec['descriptors']} map points with "
+                             f"a descriptor (>= 676), {rec['merges']} "
+                             "merges (>= 50)")
+    return rec["launches"]
+
+
+def phase_reference_path(dev):
+    """Phase 13: the reference's shape, the unfused tracker and stereo
+    matcher with BRIEF (fused_front_end=False, fused_stereo=False,
+    do_local_matching=True)."""
+    rec = _stereo_route(dev, "reference", fused_front_end=False,
+                        fused_stereo=False, do_local_matching=True)
+    calls = rec["calls"]
+    if (calls("fe.pipe.dispatch") != 0 or calls("fe.klt") < 25
+            or calls("mp.stereo_match") < 4 or rec["descriptors"] < 687):
+        raise AssertionError(
+            f"reference: {calls('fe.pipe.dispatch')} dispatches (0), "
+            f"{calls('fe.klt')} KLT calls (>= 25), "
+            f"{calls('mp.stereo_match')} stereo matchings (>= 4), "
+            f"{rec['descriptors']} descriptors (>= 687)")
+    return rec["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1055,7 +1274,11 @@ def main() -> int:
              "default": phase_default_path(dev),
              "mono": phase_mono_path(dev),
              "real_frames": phase_real_frames(dev),
-             "variant": phase_variant_path(dev)}
+             "variant": phase_variant_path(dev),
+             "nocarry": phase_nocarry_path(dev),
+             "speculate": phase_speculate_path(dev),
+             "brief": phase_brief_path(dev),
+             "reference": phase_reference_path(dev)}
     # Standalone K1's headline numbers are at the shape its path gives it
     # (subpixel refinement); phase 3's LK shapes stay beside them.
     lk_shapes = {k: k1[k] for k in ("ms", "device_ms", "plain_ms",

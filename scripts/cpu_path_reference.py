@@ -2,7 +2,8 @@
 and print its result as one JSON line (`RESULT {...}`).
 
     JAX_PLATFORMS=cpu python scripts/cpu_path_reference.py jax|torch \
-        mono|variant|real [--threads N] [--init-pose JSON]
+        mono|real|default|variant|nocarry|speculate|brief|reference \
+        [--threads N] [--init-pose JSON]
 
 mono: bench.py's 60-frame 376x1241 city scene (6000 points, seed 7), left
 images through `add_image` with `Params(stereo=False)` (bench.py's mono
@@ -13,14 +14,23 @@ variant: the same scene cut to 30 frames through `add_stereo_image` with
 real: the first 36 frames of the KITTI-05 demo fixture, mono, with
 tests/test_real_frames.py's Params (`chip_smoke.py` phase 8); no ground
 truth, so no ATE.
+default, nocarry, speculate, brief, reference: the 30-frame stereo scene
+through `add_stereo_image` with `Params(stereo=True)` alone and, in turn,
+`async_keyframe=False` (the non-carry keyframe program, `chip_smoke.py`
+phase 10), `speculate_keyframes=True` (phase 11), `do_local_matching=True`
+(BRIEF local-map matching, phase 12) and `fused_front_end=False,
+fused_stereo=False, do_local_matching=True` (the reference's own per-stage
+tracker and stereo matcher, phase 13); ATE is metric.
 
 These give the reference values that `chip_smoke.py` holds the port to on
 the card. The JSON holds resets, the frame initialization happened at,
 keyframes, 3D points, removal counts, keypoints on the last frame, the
 trajectory's finiteness and extent, pipeline stage call counts, the ATE
-and path length, the pose-source counts (the port only), seconds, the
-initializing five-point pose (`init_pose_cw`, camera-from-world) and, per
-frame, the keypoints, keyframes and 3D points after it (`per_frame`).
+and path length, the pose-source counts, seconds, the initializing
+five-point pose (`init_pose_cw`, camera-from-world), per frame the
+keypoints, keyframes and 3D points after it (`per_frame`), the keyframes'
+frame ids, the speculative adopts (`kf_adopts`), the map points that hold
+a BRIEF descriptor and the `merge_mappoints` calls.
 
 --init-pose takes a JSON 4x4 camera-from-world matrix (for example another
 run's `init_pose_cw`) and puts it in place of the pose that the five-point
@@ -69,6 +79,31 @@ def _package(name):
                 make_scene=make_scene, ate_rmse=ate_rmse, TIMERS=TIMERS)
 
 
+# Params of the 30-frame stereo paths beside stereo=True.
+STEREO_PATHS = {
+    "default": dict(),
+    "variant": dict(stereo_klt_1d=True, subpixel_detect=True),
+    "nocarry": dict(async_keyframe=False),
+    "speculate": dict(speculate_keyframes=True),
+    "brief": dict(do_local_matching=True),
+    "reference": dict(fused_front_end=False, fused_stereo=False,
+                      do_local_matching=True),
+}
+
+
+def _count_merges(mm):
+    """Count MapManager.merge_mappoints calls; returns the counter."""
+    count = [0]
+    merge = mm.merge_mappoints
+
+    def counted(prev_id, new_id):
+        count[0] += 1
+        merge(prev_id, new_id)
+
+    mm.merge_mappoints = counted
+    return count
+
+
 def _hook_init_pose(fe, inject):
     """Record (and with `inject`, replace) the pose that the mono init's
     five-point solve returns; returns the record."""
@@ -115,8 +150,7 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
             def feed(i):
                 sm.add_image(scene.frame(i)[0], float(scene.timestamps[i]))
         else:
-            p = k["Params"](stereo=True, stereo_klt_1d=True,
-                            subpixel_detect=True)
+            p = k["Params"](stereo=True, **STEREO_PATHS[path])
             sm = k["manager"](p, scene.camera, scene.right_camera, saver)
 
             def feed(i):
@@ -131,6 +165,7 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
 
     sm.reset = counted_reset
     init_rec = _hook_init_pose(sm.front_end, init_pose)
+    merges = _count_merges(sm.map_manager)
     k["TIMERS"].reset()
     init_at = None
     per_frame = []
@@ -157,15 +192,21 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
     )
     summary = k["TIMERS"].summary()
     for stage in ("fe.pipe.dispatch", "fe.resync", "es.ba", "es.ba_apply",
-                  "mp.kf_async.dispatch"):
+                  "mp.kf_async.dispatch", "mp.kf_fused", "fe.klt",
+                  "mp.stereo_match"):
         out[stage] = summary.get(stage, {}).get("calls", 0)
     if gt is not None:
         out["ate_m"] = k["ate_rmse"](est, gt, align_scale=(path == "mono"))
         out["path_m"] = float(np.sum(np.linalg.norm(np.diff(gt, axis=0),
                                                     axis=1)))
-    if hasattr(sm.front_end, "pose_trace"):
-        out["pose_sources"] = dict(collections.Counter(
-            t[1] for t in sm.front_end.pose_trace))
+    out["pose_sources"] = dict(collections.Counter(
+        t[1] for t in sm.front_end.pose_trace))
+    out["keyframe_ids"] = sorted(
+        f.id for f in sm.map_manager.frames_map.values())
+    out["kf_adopts"] = sm.front_end._n_kf_adopts
+    out["descriptors"] = sum(1 for mp in sm.map_manager.map_points.values()
+                             if mp.descriptor is not None)
+    out["merges"] = merges[0]
     out["init_pose_cw"] = init_rec.get("solved")
     out["init_pose_injected"] = init_pose is not None
     out["per_frame"] = per_frame
@@ -176,7 +217,7 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("package", choices=("jax", "torch"))
-    ap.add_argument("path", choices=("mono", "variant", "real"))
+    ap.add_argument("path", choices=("mono", "real", *STEREO_PATHS))
     ap.add_argument("--threads", type=int, default=4,
                     help="torch CPU threads (the port only)")
     ap.add_argument("--init-pose", type=json.loads, default=None,

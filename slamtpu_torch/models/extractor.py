@@ -1,9 +1,9 @@
-"""Extractor: grid-budgeted Shi-Tomasi detection on the device.
+"""Extractor: grid-budgeted Shi-Tomasi detection + optional BRIEF-256 on
+the device.
 
-Port of slamtpu/models/extractor.py (`detect`; BRIEF `describe` serves
-local-map matching, which the port has not reached yet). Budgets mirror
-reference src/extractor.jl: per-cell cap
-n_cell_detect = ceil((max_points - len(current)) / n_cells) (:76) and
+Port of slamtpu/models/extractor.py (`detect`, and `describe` for
+local-map matching). Budgets mirror reference src/extractor.jl: per-cell
+cap n_cell_detect = ceil((max_points - len(current)) / n_cells) (:76) and
 suppression around existing keypoints (:116-122, kernel K2).
 """
 from __future__ import annotations
@@ -14,7 +14,9 @@ from typing import List
 import numpy as np
 import torch
 
-from ..ops.features import detect_keypoints
+from ..ops.features import (
+    brief_describe, brief_pattern, detect_keypoints, pack_descriptor_bits,
+)
 from ..utils.profiling import TIMERS
 
 
@@ -30,6 +32,7 @@ class Extractor:
         self.capacity = capacity
         self.subpix = subpix
         self.device = torch.device(device)
+        self.pattern = torch.from_numpy(brief_pattern()).to(self.device)
 
     def _pad_points(self, points: List[np.ndarray]):
         occ = np.zeros((self.capacity, 2), np.float32)
@@ -67,3 +70,23 @@ class Extractor:
                     break
                 out.append((float(ys[c, j]), float(xs[c, j])))
         return out
+
+    def describe(self, image_dev, keypoints: np.ndarray):
+        """(N, 2) (y, x) -> list of packed uint8[32] descriptors (or None
+        where the patch leaves the image): one capacity-padded batch, one
+        fetch."""
+        n = len(keypoints)
+        if n == 0:
+            return []
+        cap = self.capacity
+        kp = np.zeros((cap, 2), np.float32)
+        valid = np.zeros((cap,), bool)
+        kp[:n] = np.asarray(keypoints, np.float32).reshape(n, 2)
+        valid[:n] = True
+        bits, ok = brief_describe(
+            image_dev, torch.from_numpy(kp).to(self.device),
+            torch.from_numpy(valid).to(self.device), self.pattern,
+        )
+        bits, ok = bits.cpu().numpy()[:n], ok.cpu().numpy()[:n]
+        packed = pack_descriptor_bits(bits)
+        return [packed[i] if ok[i] else None for i in range(n)]

@@ -1,11 +1,12 @@
-"""Grid-budgeted Shi-Tomasi keypoint detection.
+"""Grid-budgeted Shi-Tomasi keypoint detection + BRIEF-256 descriptors.
 
 Port of slamtpu/ops/features.py (shi_tomasi_response, subpixel_refine,
-detect_keypoints, CELL_TOPK) plus the numpy Hamming distance the map point
-needs. Suppression around tracked points, NMS and the threshold run in
-kernel K2 (ops/detect_suppress.py, whose plain version holds the `_dilate`
-twin); subpixel refinement gathers its 3x3 windows with kernel K1
-(ops/window_gather.py).
+detect_keypoints, CELL_TOPK, brief_pattern, brief_describe,
+pack_descriptor_bits, hamming_distance). Suppression around tracked points,
+NMS and the threshold run in kernel K2 (ops/detect_suppress.py, whose plain
+version holds the `_dilate` twin); subpixel refinement gathers its 3x3
+windows with kernel K1 (ops/window_gather.py). BRIEF is plain PyTorch, as
+it is plain XLA in the JAX package.
 
 `lax.top_k` returns equal values lowest index first; `torch.topk` promises
 no order for ties (and a suppressed cell is mostly ties at 0), so the
@@ -18,28 +19,15 @@ import torch
 import torch.nn.functional as F
 
 from .detect_suppress import suppress_and_nms
-from .image import _SCHARR_DERIV, _SCHARR_SMOOTH, gaussian_kernel_1d
+from .image import (
+    _SCHARR_DERIV, _SCHARR_SMOOTH, gaussian_blur, gaussian_kernel_1d,
+    separable_filter,
+)
 from .window_gather import gather_windows
 
 # Max detections returned per grid cell; the host trims to the dynamic
 # per-cell budget (extractor.jl:76).
 CELL_TOPK = 8
-
-
-def _conv1d(img, kernel: np.ndarray, axis: int):
-    """Separable SAME correlation of (H, W) along `axis` (zero padding)."""
-    k = torch.from_numpy(np.ascontiguousarray(kernel, np.float32)).to(
-        img.device)
-    r = len(kernel) // 2
-    if axis == 0:
-        kern, pad = k[None, None, :, None], (r, 0)
-    else:
-        kern, pad = k[None, None, None, :], (0, r)
-    return F.conv2d(img[None, None], kern, padding=pad)[0, 0]
-
-
-def separable_filter(img, ky: np.ndarray, kx: np.ndarray):
-    return _conv1d(_conv1d(img, ky, 0), kx, 1)
 
 
 def shi_tomasi_response(img, sigma: float = 1.0):
@@ -128,6 +116,55 @@ def detect_keypoints(img, occupied_px, occupied_valid, *, cell_size: int,
     if subpix:
         return (vals,) + subpixel_refine(resp_raw, cy, cx)
     return vals, cy.to(torch.int32), cx.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# BRIEF-256 (reference extractor.jl:22 BRIEF(size=256), describe :103-105):
+# a fixed Gaussian sampling pattern (seeded) within a 33x33 patch on a
+# sigma=2-smoothed image; packed into 32 bytes on the host.
+# ---------------------------------------------------------------------------
+
+_BRIEF_PATCH = 16  # half-size of the sampling patch
+
+
+def brief_pattern(size: int = 256, seed: int = 123) -> np.ndarray:
+    """(size, 4) int offsets (y1, x1, y2, x2), Gaussian sampled, clipped
+    (the JAX package's numpy draw, so bit for bit the same)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0.0, _BRIEF_PATCH / 2.5, size=(size, 4))
+    return np.clip(np.round(pts), -_BRIEF_PATCH, _BRIEF_PATCH).astype(np.int32)
+
+
+def brief_describe(img, keypoints, valid, pattern):
+    """Binary descriptors for N keypoints.
+
+    img: (H, W); keypoints: (N, 2) f32 (y, x); valid: (N,) bool; pattern:
+    (256, 4) int. Returns (N, 256) uint8 bits and an (N,) bool mask of the
+    keypoints whose whole patch lies inside the image. Rounding is half to
+    even in both packages.
+    """
+    h, w = img.shape
+    smooth = gaussian_blur(img.to(torch.float32), 2.0)
+    kp = torch.round(keypoints).to(torch.int64)
+    inb = ((kp[:, 0] >= _BRIEF_PATCH) & (kp[:, 0] < h - _BRIEF_PATCH)
+           & (kp[:, 1] >= _BRIEF_PATCH) & (kp[:, 1] < w - _BRIEF_PATCH)
+           & valid)
+    kp = torch.stack([
+        torch.clamp(kp[:, 0], _BRIEF_PATCH, h - 1 - _BRIEF_PATCH),
+        torch.clamp(kp[:, 1], _BRIEF_PATCH, w - 1 - _BRIEF_PATCH),
+    ], dim=-1)
+    pattern = pattern.to(torch.int64)
+    y1 = kp[:, 0:1] + pattern[None, :, 0]
+    x1 = kp[:, 1:2] + pattern[None, :, 1]
+    y2 = kp[:, 0:1] + pattern[None, :, 2]
+    x2 = kp[:, 1:2] + pattern[None, :, 3]
+    bits = smooth[y1, x1] < smooth[y2, x2]
+    return bits.to(torch.uint8), inb
+
+
+def pack_descriptor_bits(bits: np.ndarray) -> np.ndarray:
+    """(N, 256) 0/1 -> (N, 32) uint8 packed for fast host Hamming."""
+    return np.packbits(np.asarray(bits, dtype=np.uint8), axis=-1)
 
 
 _POPCOUNT = np.array([bin(i).count("1") for i in range(256)], dtype=np.int32)

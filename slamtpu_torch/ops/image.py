@@ -40,6 +40,29 @@ _SCHARR_SMOOTH = np.array([3.0, 10.0, 3.0], dtype=np.float32) / 16.0
 _SCHARR_DERIV = np.array([-1.0, 0.0, 1.0], dtype=np.float32) / 2.0
 
 
+def _conv1d(img, kernel: np.ndarray, axis: int):
+    """Separable SAME correlation of (H, W) along `axis` (zero padding)."""
+    k = torch.from_numpy(np.ascontiguousarray(kernel, np.float32)).to(
+        img.device)
+    r = len(kernel) // 2
+    if axis == 0:
+        kern, pad = k[None, None, :, None], (r, 0)
+    else:
+        kern, pad = k[None, None, None, :], (0, r)
+    return F.conv2d(img[None, None], kern, padding=pad)[0, 0]
+
+
+def separable_filter(img, ky: np.ndarray, kx: np.ndarray):
+    return _conv1d(_conv1d(img, ky, 0), kx, 1)
+
+
+def gaussian_blur(img, sigma: float):
+    """SAME Gaussian blur of (H, W) with zero padding: the FIR kernel of
+    gaussian_kernel_1d (radius ceil(3 sigma)) along both axes."""
+    k = gaussian_kernel_1d(sigma)
+    return separable_filter(img, k, k)
+
+
 def _pad_center(kernel: np.ndarray, taps: int) -> np.ndarray:
     extra = (taps - len(kernel)) // 2
     return np.pad(kernel, (extra, extra))

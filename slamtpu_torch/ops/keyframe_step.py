@@ -1,14 +1,21 @@
-"""Carry-chained keyframe program: Shi-Tomasi detection (kernel K2) + slot
-admission + stereo KLT (the LK level kernel) + stereo and temporal DLT.
+"""Keyframe programs: Shi-Tomasi detection (kernel K2) + slot admission +
+stereo KLT (the LK level kernel) + stereo and temporal DLT.
 
-Port of slamtpu/ops/keyframe_step.py (`_shi_tomasi_cells`,
-`keyframe_step_carry` and the KS2_* / K2_* / M2_* layouts):
+Port of slamtpu/ops/keyframe_step.py (`_shi_tomasi_cells`, `keyframe_step`,
+`keyframe_step_carry` and the KF_* / KFL_* / MISC_*, KS2_* / K2_* / M2_*
+layouts). Two programs:
 
+    per_slot, n_new = keyframe_step(pyr_left, right_img, state)
     carry', per_slot, n_new = keyframe_step_carry(carry, right_img, state)
 
-It consumes and emits the track_step carry, so the next tracked frame
-chains off the post-keyframe carry with no host round trip. The host
-re-makes every accept/reject gate in f64 one frame behind from `per_slot`
+`keyframe_step` (`async_keyframe=False`, and the stale-adopt fallback of
+`speculate_keyframes`) takes a host-assembled slot table: the old keypoints
+in rows [0, n_old), the admitted detections appended after them in host
+order; the host fetches the outputs at once and resyncs the carry
+(models/mapper.py::process_fused_keyframe). `keyframe_step_carry` consumes
+and emits the track_step carry, so the next tracked frame chains off the
+post-keyframe carry with no host round trip. The host re-makes every
+accept/reject gate in f64 one frame behind from `per_slot`
 (models/mapper.py::apply_async_keyframe); the program predicts the stereo
 promotions in f32 so the next frames see the new 3D points at once, and a
 carry_merge correction reconciles the rest.
@@ -17,12 +24,11 @@ Detection suppression and NMS are `detect_suppress.suppress_and_nms`: the
 CUDA kernel K2 on a CUDA tensor, its plain version on a CPU tensor.
 Suppression stays before NMS. With `subpix` the detections are refined on
 the raw response (`features.subpixel_refine`, kernel K1), and with
-`stereo_1d` the stereo cascade runs the disparity-only LK level. `keyframe_step_carry.launches` counts the
-calls of this program, so a caller can hold the K2 launches against it.
+`stereo_1d` the stereo cascade runs the disparity-only LK level. Each
+program's `launches` counts its calls, so a caller can hold the K2
+launches against them.
 
-Not ported: the non-carry `keyframe_step` (reached with
-`async_keyframe=False`) and `_admit_rows` (`SLAMTPU_SORT_SCATTER`, off by
-default).
+Not ported: `_admit_rows` (`SLAMTPU_SORT_SCATTER`, off by default).
 """
 from __future__ import annotations
 
@@ -44,10 +50,45 @@ from .track_step import (
     MS_VEL, MS_WC, TK_FLAGS, TK_MP, TK_PX, _in_image, _project_distort,
 )
 
+# Per-slot packed columns of keyframe_step's (state_rows(cap), 16) upload
+# (rows [0, cap)).
+KF_PX = slice(0, 2)        # pixel (y, x)
+KF_UND = slice(2, 4)       # undistorted pixel (y, x) — host f64 cast
+KF_DISP = slice(4, 6)      # stereo right-projection prior displacement
+KF_FLAGS = 6               # bits below
+KF_OBS_UND = slice(7, 9)   # first-observer undistorted pixel (x, y)
+KF_GROUP = 9               # temporal group index (-1 = not a candidate)
+KFL_VALID = 1
+KFL_PRIOR = 2
+KFL_TEMPORAL = 4
+# Occupancy-only row: suppresses detection around its pixel but is not
+# stereo-tracked (3D keypoints whose right projection left the image,
+# map_manager.jl:500-507).
+KFL_OCCUPY = 8
+
 # Per-cell candidate budget (matches ops/features.py::CELL_TOPK).
 KF_TOPK = 8
 
 N_GROUPS = 64              # padded temporal observer-group capacity
+N_MISC_ROWS = 4            # keyframe_step's misc block rows (16 f32 each)
+
+# keyframe_step's misc layout (64 slots): P1 (16) | P2_right (16) |
+# intr_r (4) | dist_r (4) | intr_l (4) | dist_l (4) | n_old |
+# n_cell_detect | nb_to_detect
+MISC_P1 = slice(0, 16)
+MISC_P2R = slice(16, 32)
+MISC_INTR_R = slice(32, 36)
+MISC_DIST_R = slice(36, 40)
+MISC_INTR_L = slice(40, 44)
+MISC_DIST_L = slice(44, 48)
+MISC_N_OLD = 48
+MISC_CELL_DETECT = 49
+MISC_NB_DETECT = 50
+
+
+def state_rows(cap: int) -> int:
+    return cap + N_GROUPS + N_MISC_ROWS
+
 
 # Per-slot packed columns of the (cap + N_GROUPS + KS2_MISC_ROWS, 16) upload.
 KS2_UND = slice(0, 2)      # current undistorted pixel (y, x) — host f64 cast
@@ -128,6 +169,148 @@ def _shi_tomasi_cells(pyr_left, px, occ_rows, *, pad, height, width,
     if subpix:
         return (vals,) + subpixel_refine(resp_raw, det_y, det_x)
     return vals, det_y, det_x
+
+
+def _admit(det_y, det_x, flat, slot, bases, intr_l, dist_l):
+    """Scatter the admitted detections (`flat`) into their slots of each
+    (cap, 2) base: (pixels, undistorted pixels). Row `cap` is the dump row
+    every non-admitted candidate scatters to. Returns (px_full, und_full,
+    new_mask)."""
+    px, und = bases
+    cap = px.shape[0]
+    det_px = torch.stack([det_y.reshape(-1), det_x.reshape(-1)],
+                         dim=-1).to(torch.float32)
+    det_und, _ = _undistort_backproject(det_px, intr_l, dist_l)
+    scatter_idx = torch.where(flat, slot, torch.full_like(slot, cap))
+
+    def scatter(base, values):
+        ext = torch.cat([base, torch.zeros((1,) + tuple(base.shape[1:]),
+                                           dtype=base.dtype,
+                                           device=base.device)])
+        return ext.index_put((scatter_idx,), values)[:cap]
+
+    return (scatter(px, det_px), scatter(und, det_und),
+            scatter(torch.zeros(cap, dtype=torch.bool, device=px.device),
+                    flat))
+
+
+def _stereo_and_dlt(pyr_left, pyr_right, px_full, und_full, prior_mask,
+                    disp, track, obs_und_xy, group_idx, group_mats, misc_l,
+                    *, levels, window, iters, eps, eig_thresh, pad,
+                    max_fb_distance, min_active, stereo_1d):
+    """Stereo KLT over the combined slot set, the row-corrected right
+    pixel, stereo DLT and temporal DLT against each slot's first-observer
+    keyframe (mapper.jl:142-263; the host applies the gates). `misc_l` is
+    (P1, P2r, intr_r, dist_r). Returns (tracked_px, ok, right_und, lp,
+    X_t)."""
+    P1, P2r, intr_r, dist_r = misc_l
+    tracked_px, ok, _ = fb_cascade(
+        pyr_left, pyr_right, px_full, prior_mask, disp, track,
+        levels=levels, prior_level=1, window=window, iters=iters, eps=eps,
+        eig_thresh=eig_thresh, pad=pad, max_distance=max_fb_distance,
+        min_active=min_active, one_d=stereo_1d,
+    )
+    # Row-corrected right pixel (map_manager.jl:586-588).
+    corrected = torch.stack([px_full[:, 0], tracked_px[:, 1]], dim=-1)
+    right_und, _ = _undistort_backproject(corrected, intr_r, dist_r)
+
+    X_s = triangulate_points(und_full.flip(-1), right_und.flip(-1), P1, P2r)
+    w_s = X_s[:, 3:]
+    w_s = torch.where(torch.abs(w_s) < 1e-12, torch.full_like(w_s, 1e-12),
+                      w_s)
+    lp = X_s[:, :3] / w_s
+
+    P2_rows = group_mats[torch.clamp(group_idx, 0, N_GROUPS - 1).long()]
+    X_t = triangulate_points(obs_und_xy, und_full.flip(-1), P1, P2_rows)
+    return tracked_px, ok, right_und, lp, X_t
+
+
+def keyframe_step(pyr_left, right_image, state, *, levels: int, window: int,
+                  iters: int = 30, eps: float = 1e-2,
+                  eig_thresh: float = 1e-4, pad: int = 17,
+                  max_fb_distance: float = 1.0, sigma: float = 1.0,
+                  min_active: int = 0, cell_size: int = 35, radius: int = 17,
+                  min_response: float = 1e-4, height: int = 0,
+                  width: int = 0, stereo_1d: bool = False,
+                  subpix: bool = False):
+    """One keyframe on a host-assembled slot table (the JAX program's
+    arguments and results; `state` is the (state_rows(cap), 16) f32
+    upload, old keypoints in rows [0, n_old)). The admitted detections
+    take rows n_old, n_old + 1, ... in row-major (cell, rank) order, the
+    host's admission order. Returns (per_slot (cap, 12), n_new (0-d int
+    tensor))."""
+    keyframe_step.launches += 1
+    cap = state.shape[0] - N_GROUPS - N_MISC_ROWS
+    dev = state.device
+    slots = state[:cap]
+    group_mats = state[cap:cap + N_GROUPS].reshape(N_GROUPS, 4, 4)
+    misc = state[cap + N_GROUPS:].reshape(N_MISC_ROWS * 16)
+
+    px = slots[:, KF_PX]
+    und = slots[:, KF_UND]
+    disp = slots[:, KF_DISP]
+    flags = slots[:, KF_FLAGS].to(torch.int32)
+    obs_und_xy = slots[:, KF_OBS_UND]
+    group_idx = slots[:, KF_GROUP].to(torch.int32)
+    valid = (flags & KFL_VALID) > 0
+    prior_mask = (flags & KFL_PRIOR) > 0
+
+    intr_l = misc[MISC_INTR_L]
+    dist_l = misc[MISC_DIST_L]
+    n_old = misc[MISC_N_OLD].to(torch.int32)
+    n_cell_detect = misc[MISC_CELL_DETECT].to(torch.int32)
+    nb_to_detect = misc[MISC_NB_DETECT].to(torch.int32)
+
+    pyr_right = lk_pyramid_impl(right_image, levels=levels, sigma=sigma,
+                                pad=pad)
+
+    # -- 1. detection (ops/features.detect_keypoints inlined) ---------------
+    occ_rows = (flags & (KFL_VALID | KFL_OCCUPY)) > 0
+    vals, det_y, det_x = _shi_tomasi_cells(
+        pyr_left, px, occ_rows, pad=pad, height=height, width=width,
+        radius=radius, min_response=min_response, cell_size=cell_size,
+        subpix=subpix,
+    )
+
+    # -- 2. admission in host order (row-major cell, then rank) -------------
+    col = torch.arange(KF_TOPK, device=dev)[None, :].expand(vals.shape)
+    admitted = (vals > min_response) & (col < n_cell_detect)
+    flat = admitted.reshape(-1)
+    flat_i = flat.to(torch.int32)
+    before = torch.cumsum(flat_i, 0, dtype=torch.int32) - flat_i
+    flat = flat & (before < nb_to_detect)
+    slot = (n_old + before).long()
+    flat = flat & (slot < cap)
+    n_new = torch.sum(flat)
+    px_full, und_full, new_mask = _admit(det_y, det_x, flat, slot,
+                                         (px, und), intr_l, dist_l)
+    valid_full = valid | new_mask
+
+    # -- 3, 4. stereo KLT over the combined set, stereo and temporal DLT ----
+    tracked_px, ok, _, lp, X_t = _stereo_and_dlt(
+        pyr_left, pyr_right, px_full, und_full, prior_mask, disp,
+        valid_full, obs_und_xy, group_idx, group_mats,
+        (misc[MISC_P1].reshape(4, 4), misc[MISC_P2R].reshape(4, 4),
+         misc[MISC_INTR_R], misc[MISC_DIST_R]),
+        levels=levels, window=window, iters=iters, eps=eps,
+        eig_thresh=eig_thresh, pad=pad, max_fb_distance=max_fb_distance,
+        min_active=min_active, stereo_1d=stereo_1d,
+    )
+    per_slot = torch.cat(
+        [
+            px_full,                                   # 0:2 (incl. new dets)
+            tracked_px,                                # 2:4
+            ok[:, None].to(torch.float32),             # 4
+            lp,                                        # 5:8
+            X_t,                                       # 8:12 homogeneous
+        ],
+        dim=-1,
+    )
+    return per_slot, n_new
+
+
+# Calls of the non-carry keyframe program in this process (on any device).
+keyframe_step.launches = 0
 
 
 def keyframe_step_carry(carry, right_image, state, *, levels: int,
@@ -213,46 +396,20 @@ def keyframe_step_carry(carry, right_image, state, *, levels: int,
     flat = flat & (before < nb_to_detect) & (before < n_free)
     slot = free_list[torch.clamp(before, 0, cap - 1).long()]
     n_new = torch.sum(flat)
-
-    det_px = torch.stack([det_y.reshape(-1), det_x.reshape(-1)],
-                         dim=-1).to(f32)
-    det_und, _ = _undistort_backproject(det_px, intr_l, dist_l)
-    # Row `cap` is the dump row every non-admitted candidate scatters to.
-    scatter_idx = torch.where(flat, slot, torch.full_like(slot, cap))
-
-    def scatter2(base, values):
-        ext = torch.cat([base, torch.zeros((1, 2), dtype=base.dtype,
-                                           device=dev)])
-        return ext.index_put((scatter_idx,), values)[:cap]
-
-    px_full = scatter2(px, det_px)
-    und_full = scatter2(und_up, det_und)
-    new_mask = torch.zeros(cap + 1, dtype=torch.bool, device=dev).index_put(
-        (scatter_idx,), flat)[:cap]
+    px_full, und_full, new_mask = _admit(det_y, det_x, flat, slot,
+                                         (px, und_up), intr_l, dist_l)
     valid_full = valid | new_mask
     track_full = track_mask | new_mask
 
-    # -- 2. stereo KLT over the combined set ---------------------------------
-    tracked_px, ok, _ = fb_cascade(
-        pyr_left, pyr_right, px_full, prior_mask, disp, track_full,
-        levels=levels, prior_level=1, window=window, iters=iters, eps=eps,
-        eig_thresh=eig_thresh, pad=pad, max_distance=max_fb_distance,
-        min_active=min_active, one_d=stereo_1d,
+    # -- 2, 3. stereo KLT over the combined set, stereo and temporal DLT ----
+    tracked_px, ok, right_und, lp, X_t = _stereo_and_dlt(
+        pyr_left, pyr_right, px_full, und_full, prior_mask, disp,
+        track_full, obs_und_xy, group_idx, group_mats,
+        (P1, P2r, intr_r, dist_r),
+        levels=levels, window=window, iters=iters, eps=eps,
+        eig_thresh=eig_thresh, pad=pad, max_fb_distance=max_fb_distance,
+        min_active=min_active, stereo_1d=stereo_1d,
     )
-    # Row-corrected right pixel (map_manager.jl:586-588).
-    corrected = torch.stack([px_full[:, 0], tracked_px[:, 1]], dim=-1)
-    right_und, _ = _undistort_backproject(corrected, intr_r, dist_r)
-
-    # -- 3a. stereo DLT (mapper.jl:142-183) ----------------------------------
-    X_s = triangulate_points(und_full.flip(-1), right_und.flip(-1), P1, P2r)
-    w_s = X_s[:, 3:]
-    w_s = torch.where(torch.abs(w_s) < 1e-12, torch.full_like(w_s, 1e-12),
-                      w_s)
-    lp = X_s[:, :3] / w_s
-
-    # -- 3b. temporal DLT vs first-observer KFs (mapper.jl:185-263) ----------
-    P2_rows = group_mats[torch.clamp(group_idx, 0, N_GROUPS - 1).long()]
-    X_t = triangulate_points(obs_und_xy, und_full.flip(-1), P1, P2_rows)
 
     # -- 4. predicted stereo promotion (f32 mirror of the host's f64 gates,
     # mapper.jl:155-181; the host re-decides one frame later) ---------------

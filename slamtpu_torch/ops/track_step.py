@@ -1,7 +1,7 @@
 """Device-resident per-frame tracking step (carry-passing).
 
-Port of slamtpu/ops/track_step.py (`track_step`, `carry_merge` and the
-TK_* / FL_* / MS_* layouts):
+Port of slamtpu/ops/track_step.py (`track_step`, `carry_merge`,
+`carry_adopt_kf` and the TK_* / FL_* / MS_* layouts):
 
     carry_{N+1}, per_kp_N, scalars_N = track_step(carry_N, image_N, dt_N)
 
@@ -17,8 +17,9 @@ Carries are shared: a carry handed to `track_step` is also held by the
 in-flight frame record that produced it (and by a pending keyframe), so
 every function here builds new tensors and never writes into its inputs.
 The motion model runs in float32 on the device, as in the JAX program.
-`carry_adopt_kf` (reached only with `speculate_keyframes=True`) is not
-ported.
+`carry_adopt_kf` (`speculate_keyframes=True`) grafts a keyframe program's
+output onto the speculated tip; its catch-up LK runs on the LK level
+kernel and, like the tracking step, issues no host sync on the card.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from .frontend_step import frontend_step
 from .image import lk_pyramid_impl
+from .lucas_kanade import lk_flow
 from .se3 import pose_to_theta, rt_to_4x4, se3_exp, se3_inv, se3_log, \
     theta_to_pose
 
@@ -283,3 +285,73 @@ def carry_merge(carry, host_kp, host_misc):
         misc[MS_DISTORTION],
     ])
     return {"pyr": carry["pyr"], "kp": kp_new, "misc": misc_new}
+
+
+def carry_adopt_kf(carry, kf_carry, pre_kp, *, levels, window, iters, eps,
+                   eig_thresh, pad):
+    """Graft a keyframe program's output onto the speculated tip carry
+    without discarding the in-flight dispatches
+    (params.speculate_keyframes).
+
+    `carry` is the tip of the speculated chain (frames dispatched past the
+    keyframe), `kf_carry` is keyframe_step_carry's output (branched off the
+    keyframe frame's carry), `pre_kp` is the kp table both chains branched
+    from (it identifies the slots the keyframe program filled).
+
+    Ownership (as in carry_merge):
+      - slots the keyframe FILLED (invalid before, valid after): their
+        detection pixel is at the keyframe frame, 1-3 frames behind the
+        tip, so a catch-up LK pass (keyframe pyramid -> tip pyramid, full
+        pyramid, zero prior) moves them to the tip frame; catch-up failures
+        are dropped;
+      - existing slots: pixel from the speculated chain (it tracked them
+        past the keyframe), map position, prev-KF observation refs and the
+        3D and join flags from kf_carry;
+      - validity is the AND of both views;
+      - misc: prev-KF pose and 5pt gate from kf_carry, pose/velocity
+        recurrence from the speculated chain.
+
+    Returns (carry', caught (cap,) bool: False only on a filled slot whose
+    catch-up failed).
+    """
+    kp = carry["kp"]
+    kfkp = kf_carry["kp"]
+    flags_dev = kp[:, TK_FLAGS].to(torch.int32)
+    flags_kf = kfkp[:, TK_FLAGS].to(torch.int32)
+    flags_pre = pre_kp[:, TK_FLAGS].to(torch.int32)
+    new_slot = ((flags_pre & FL_VALID) == 0) & ((flags_kf & FL_VALID) > 0)
+    valid = (flags_dev & FL_VALID) & (flags_kf & FL_VALID)
+    flags_merged = (flags_kf & ~FL_VALID) | valid
+
+    # Catch-up LK for the freshly detected slots only.
+    det_px = kfkp[:, TK_PX].contiguous()
+    flow, caught = lk_flow(
+        kf_carry["pyr"], carry["pyr"], det_px, torch.zeros_like(det_px),
+        new_slot, levels=levels, window=window, iters=iters, eps=eps,
+        eig_thresh=eig_thresh, pad=pad,
+    )
+    new_px = det_px + flow
+    new_flags = torch.where(caught, flags_kf, flags_kf & ~FL_VALID)
+    new_rows = torch.cat(
+        [new_px, kfkp[:, TK_MP], kfkp[:, TK_PREV_UND],
+         kfkp[:, TK_PREV_BEAR], new_flags.to(torch.float32)[:, None]],
+        dim=-1,
+    )
+    merged = torch.cat(
+        [kp[:, TK_PX], kfkp[:, TK_MP], kfkp[:, TK_PREV_UND],
+         kfkp[:, TK_PREV_BEAR], flags_merged.to(torch.float32)[:, None]],
+        dim=-1,
+    )
+    kp_new = torch.where(new_slot[:, None], new_rows, merged)
+    misc = carry["misc"]
+    kf_misc = kf_carry["misc"]
+    misc_new = torch.cat([
+        kf_misc[MS_PREV_KF_CW],
+        misc[MS_WC],
+        misc[MS_VEL],
+        torch.stack([kf_misc[MS_APPLY_5PT], misc[MS_HAS_PREV]]),
+        misc[MS_INTRINSICS],
+        misc[MS_DISTORTION],
+    ])
+    caught_mask = torch.where(new_slot, caught, torch.ones_like(caught))
+    return {"pyr": carry["pyr"], "kp": kp_new, "misc": misc_new}, caught_mask

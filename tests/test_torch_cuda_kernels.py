@@ -457,3 +457,63 @@ def test_subpixel_windows_match_plain():
     y_p, x_p = features.subpixel_refine(resp.cpu(), ys.cpu(), xs.cpu())
     np.testing.assert_allclose(y_k.cpu().numpy(), y_p.numpy(), atol=1e-6)
     np.testing.assert_allclose(x_k.cpu().numpy(), x_p.numpy(), atol=1e-6)
+
+
+def test_carry_adopt_kf_issues_no_host_sync():
+    """speculate_keyframes' graft on CUDA tensors runs with synchronizing
+    calls turned into errors, and its catch-up LK (keyframe pyramid ->
+    tip pyramid, 2-D level kernel) agrees with the CPU run: catch-up masks
+    on >= 99.5% of the new slots, pixels caught in both within 1e-3 px, the
+    selected rows equal."""
+    pyr_kf, pyr_tip = _pyramid_pair()
+    rng = np.random.default_rng(6)
+    cap, n_old, n_new = 1024, 300, 400
+    pre = np.zeros((cap, 10), np.float32)
+    pre[:n_old, ts.TK_PX] = np.stack([rng.uniform(20, 356, n_old),
+                                      rng.uniform(20, 1221, n_old)], -1)
+    pre[:n_old, ts.TK_FLAGS] = ts.FL_VALID
+    kf = pre.copy()
+    kf[n_old:n_old + n_new, ts.TK_PX] = np.stack(
+        [rng.integers(0, 376, n_new), rng.integers(0, 1241, n_new)], -1)
+    kf[:n_old + n_new, ts.TK_FLAGS] = ts.FL_VALID | ts.FL_JOIN
+    tip = pre.copy()
+    tip[:n_old, ts.TK_PX] += rng.normal(0.0, 1.0, (n_old, 2))
+    tip[::7, ts.TK_FLAGS] = 0
+    misc = rng.normal(size=48).astype(np.float32)
+    kw = dict(levels=3, window=9, iters=30, eps=1e-2, eig_thresh=1e-4,
+              pad=PAD)
+
+    def carries(dev, pyr_a, pyr_b):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return ({"pyr": pyr_b, "kp": t(tip), "misc": t(misc)},
+                {"pyr": pyr_a, "kp": t(kf), "misc": t(misc[::-1])}, t(pre))
+
+    ts.carry_adopt_kf(*carries("cuda", pyr_kf, pyr_tip), **kw)  # warm up
+    args = carries("cuda", pyr_kf, pyr_tip)
+    torch.cuda.synchronize()
+    before = lk.lk_level.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, caught = ts.carry_adopt_kf(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert lk.lk_level.launches - before == 4  # levels 3..0
+
+    def cpu_pyr(pyr):
+        return tuple({k: v.cpu() for k, v in lv.items()} for lv in pyr)
+
+    ref, caught_ref = ts.carry_adopt_kf(
+        *carries("cpu", cpu_pyr(pyr_kf), cpu_pyr(pyr_tip)), **kw)
+    new = np.zeros(cap, bool)
+    new[n_old:n_old + n_new] = True
+    c, c_ref = caught.cpu().numpy(), caught_ref.numpy()
+    assert c[~new].all() and c_ref[~new].all()
+    assert (c == c_ref)[new].mean() >= 0.995 and c_ref[new].sum() > 100
+    kp, kp_ref = out["kp"].cpu().numpy(), ref["kp"].numpy()
+    both = new & c & c_ref
+    assert np.abs(kp[both, 0:2] - kp_ref[both, 0:2]).max() <= 1e-3
+    np.testing.assert_array_equal(kp[~new], kp_ref[~new])
+    np.testing.assert_array_equal(out["misc"].cpu().numpy(),
+                                  ref["misc"].numpy())
