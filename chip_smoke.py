@@ -14,6 +14,8 @@ Phases, one line each; any failure raises and exits nonzero:
      (two consecutive 376x1241 city-scene frames) at the main path's
      level-0 and level-3 shapes, N = 1024: ok masks agree on >= 99.5% of
      the points alive at entry, flows of points ok in both within 1e-3 px;
+     prints the iterations the level ran (K), its point-iterations and the
+     device time beside the earlier barrier design's;
   5. the classic path: a 30-frame 376x1241 synthetic stereo city scene
      through slamtpu_torch.SlamManager(device="cuda") with
      Params(stereo=True, pipelined=False, do_local_bundle_adjustment=False);
@@ -344,6 +346,14 @@ def phase_k2(dev):
                             "points and then applies 3x3 NMS + threshold"}
 
 
+# Device ms of the level kernel's earlier design (one cooperative launch,
+# a grid barrier before every iteration) at phases 4b / 4c's shapes, as
+# measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6);
+# printed beside this run's.
+BARRIER_DEVICE_MS = {("2-D", 0): 0.0745, ("2-D", 3): 0.0622,
+                       ("1-D", 0): 0.0609, ("1-D", 3): 0.0582}
+
+
 def phase_lk_level(dev):
     """The LK level kernel at the main path's level-0 and level-3 shapes
     (window 9, 30 iterations, lk_min_active 16, N = 1024) on a real pyramid
@@ -380,8 +390,8 @@ def phase_lk_level(dev):
                   iters=p.lk_iterations, eps=p.lk_epsilon,
                   eig_thresh=p.lk_eigenvalue_threshold, pad=pad,
                   min_active=p.lk_min_active)
-        flow_k, ok_k, counts = lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
-                                                return_counts=True, **kw)
+        flow_k, ok_k, counts, its = lk.lk_level_cuda(
+            d1, d2, p_lvl, flow, ok, return_counts=True, **kw)
         flow_p, ok_p = lk.lk_level_plain(d1, d2, p_lvl, flow, ok, **kw)
         torch.cuda.synchronize()
         alive = ok.cpu().numpy()
@@ -397,11 +407,10 @@ def phase_lk_level(dev):
         # Work this run's data needs: the distinct pixels under the stack
         # windows and patches of the points alive at entry (starts clamped
         # as the kernel clamps them), and the solver's point-iterations the
-        # kernel counted. A check that ran has nonzero arrival bits.
-        counts = counts.cpu().numpy()
-        arrived = counts & ((1 << lk.LK_LEVEL_ARRIVE_BITS) - 1)
-        its = int((arrived > 0).sum()) - 1
-        point_iters = int((counts[:its] >> lk.LK_LEVEL_ARRIVE_BITS).sum())
+        # kernel counted: the K iterations the function runs and the points
+        # running in each, not the iterations warps run past K.
+        its = int(its)
+        point_iters = int(counts.cpu().numpy()[:its].sum())
         n_live = int(alive.sum())
         hp, wp = d2["img"].shape
         h, w = kw["hw"]
@@ -435,12 +444,14 @@ def phase_lk_level(dev):
              ok_plain=int(ok_p_np.sum()), ok_agreement=f"{agree:.4f}",
              max_flow_err_px=f"{err:.2e}", iterations=its,
              point_iterations=point_iters, ms=f"{k_ms:.4f}",
-             device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
-             bound_ms=f"{b_ms:.6f}", bound_by=b_by, library_ms="null")
+             device_ms=_fmt(d_ms),
+             device_ms_barrier_kernel=BARRIER_DEVICE_MS[("2-D", level)],
+             plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+             library_ms="null")
         rows.append(dict(level=level, ms=k_ms, device_ms=d_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=err, ok_agreement=agree,
-                         iterations=its))
+                         iterations=its, point_iterations=point_iters))
     return {"name": "lk_level", "route": "cuda",
             "source": "slamtpu_torch/csrc/lk_level.cu",
             "replaces": "slamtpu/ops/dma_gather.py:47",
@@ -496,7 +507,7 @@ def phase_lk_level_1d(dev):
                   iters=p.lk_iterations, eps=p.lk_epsilon,
                   eig_thresh=p.lk_eigenvalue_threshold, pad=pad,
                   min_active=p.lk_min_active)
-        flow_k, ok_k, counts = lk.lk_level_cuda(
+        flow_k, ok_k, counts, its = lk.lk_level_cuda(
             d1, d2, p_lvl, flow, ok, return_counts=True, one_d=True, **kw)
         flow_p, ok_p = lk.lk_level_1d_plain(d1, d2, p_lvl, flow, ok, **kw)
         torch.cuda.synchronize()
@@ -510,10 +521,8 @@ def phase_lk_level_1d(dev):
             raise AssertionError(f"the 1-D level mode differs from its plain "
                                  f"version at level {level}: ok agreement "
                                  f"{agree:.4f}, flow error {err:.2e} px")
-        counts = counts.cpu().numpy()
-        arrived = counts & ((1 << lk.LK_LEVEL_ARRIVE_BITS) - 1)
-        its = int((arrived > 0).sum()) - 1
-        point_iters = int((counts[:its] >> lk.LK_LEVEL_ARRIVE_BITS).sum())
+        its = int(its)
+        point_iters = int(counts.cpu().numpy()[:its].sum())
         n_live = int(alive.sum())
         # Bytes: the img and Ix windows and Gxx (read once each) under the
         # live points' stack windows, the (T, P) patches (rows at the
@@ -551,12 +560,14 @@ def phase_lk_level_1d(dev):
              ok_plain=int(ok_p_np.sum()), ok_agreement=f"{agree:.4f}",
              max_flow_err_px=f"{err:.2e}", iterations=its,
              point_iterations=point_iters, ms=f"{k_ms:.4f}",
-             device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
-             bound_ms=f"{b_ms:.6f}", bound_by=b_by, library_ms="null")
+             device_ms=_fmt(d_ms),
+             device_ms_barrier_kernel=BARRIER_DEVICE_MS[("1-D", level)],
+             plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+             library_ms="null")
         rows.append(dict(level=level, ms=k_ms, device_ms=d_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=err, ok_agreement=agree,
-                         iterations=its))
+                         iterations=its, point_iterations=point_iters))
     return {"name": "lk_level_1d", "route": "cuda",
             "source": "slamtpu_torch/csrc/lk_level.cu",
             "replaces": "slamtpu/ops/dma_gather.py:47",

@@ -30,7 +30,8 @@ and path length, the pose-source counts, seconds, the initializing
 five-point pose (`init_pose_cw`, camera-from-world), per frame the
 keypoints, keyframes and 3D points after it (`per_frame`), the keyframes'
 frame ids, the speculative adopts (`kf_adopts`), the map points that hold
-a BRIEF descriptor and the `merge_mappoints` calls.
+a BRIEF descriptor, the `merge_mappoints` calls and, for the port, torch's
+CPU thread count (`threads`; null for the JAX package).
 
 --init-pose takes a JSON 4x4 camera-from-world matrix (for example another
 run's `init_pose_cw`) and puts it in place of the pose that the five-point
@@ -224,11 +225,16 @@ def main():
                     help="JSON 4x4 camera-from-world pose to initialize "
                          "from in place of the five-point solve's")
     args = ap.parse_args()
+    threads = None
     if args.package == "torch":
         import torch
         torch.set_num_threads(args.threads)
-    print("RESULT " + json.dumps(run(args.package, args.path,
-                                     args.init_pose)), flush=True)
+        threads = torch.get_num_threads()
+    result = run(args.package, args.path, args.init_pose)
+    # The port's CPU results depend on torch's thread count (local BA's
+    # large contractions); the JAX package's run records null.
+    result["threads"] = threads
+    print("RESULT " + json.dumps(result), flush=True)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@ writes to chiprun_out/<NAME or torch_profile_<path>>.json:
   - window wall time per frame and the summed kernel time per frame, so
     device busy share = kernel time / wall time (one stream, kernels do
     not overlap);
-  - kernel launches and host<->device synchronizations per frame;
+  - kernel launches and host<->device synchronizations per frame, and the
+    LK level kernel's (both modes) device time and launches per frame;
   - the top kernels by device time and the most frequent host ops;
   - the stage timers (slamtpu_torch.utils.profiling.TIMERS) over the
     window and over the frames after it;
@@ -137,6 +138,7 @@ def main() -> int:
              if e.device_type == DeviceType.CPU
              and ("Synchronize" in e.key or "cudaMemcpy" in e.key)}
     top_kernels = sorted(kernels, key=_device_time, reverse=True)[:15]
+    lk_kernels = [e for e in kernels if "lk_level" in e.key]
     host_ops = [e for e in avgs if e.device_type == DeviceType.CPU
                 and e.key.startswith("aten::")]
     top_ops = sorted(host_ops, key=lambda e: e.count, reverse=True)[:15]
@@ -155,6 +157,9 @@ def main() -> int:
         "device_busy_share": kernel_us / 1e6 / wall,
         "device_busy_share_vs_unprofiled": kernel_us / 1e3 / n / after_ms,
         "kernel_launches_per_frame": launches / n,
+        "lk_level_ms_per_frame": sum(_device_time(e)
+                                     for e in lk_kernels) / 1e3 / n,
+        "lk_level_launches_per_frame": sum(e.count for e in lk_kernels) / n,
         "sync_calls_per_frame": {k: v / n for k, v in syncs.items()},
         "top_kernels": [
             {"name": e.key[:120], "calls": e.count,

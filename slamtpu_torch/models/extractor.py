@@ -23,7 +23,8 @@ from ..utils.profiling import TIMERS
 class Extractor:
     def __init__(self, max_points: int, radius: int, grid_resolution,
                  cell_size: int, min_response: float = 1e-4,
-                 capacity: int = 1024, subpix: bool = False, *, device):
+                 capacity: int = 1024, brief_seed: int = 123,
+                 subpix: bool = False, *, device):
         self.max_points = max_points
         self.radius = radius
         self.grid_resolution = tuple(grid_resolution)
@@ -32,7 +33,8 @@ class Extractor:
         self.capacity = capacity
         self.subpix = subpix
         self.device = torch.device(device)
-        self.pattern = torch.from_numpy(brief_pattern()).to(self.device)
+        self.pattern = torch.from_numpy(
+            brief_pattern(seed=brief_seed)).to(self.device)
 
     def _pad_points(self, points: List[np.ndarray]):
         occ = np.zeros((self.capacity, 2), np.float32)

@@ -13,7 +13,12 @@ Two points where PyTorch's defaults differ from XLA's:
     and its `antialias=True` is another kernel. The port builds JAX's
     separable weight matrices (jax/_src/image/scale.py::compute_weight_mat,
     same float32 steps) for the exact ceil-halved shapes (1241 -> 621 is
-    not an exact half) and applies them with two matmuls.
+    not an exact half). On the card they are applied as two dense
+    products, one launch each. On the CPU a dense product sums in an order
+    that changes with torch's thread count, so there each output adds its
+    few nonzero weights times their inputs one tap after another, in
+    increasing input order, rounding as a fused multiply-add does: the
+    bits of a single-threaded product, on any thread count.
 """
 from __future__ import annotations
 
@@ -97,15 +102,53 @@ def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.from_numpy(_resize_weights_np(in_size, out_size)).to(device)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_taps(in_size: int, out_size: int, device):
+    """(K, out) int64 input indices and weights (float32 values held in
+    float64) of each output's nonzero taps, in increasing input order. An
+    output with fewer than K taps pads with weight 0 at index 0, after its
+    real taps."""
+    w = _resize_weights_np(in_size, out_size)             # (in, out)
+    nz = w != 0.0
+    k = max(1, int(nz.sum(axis=0).max()))
+    idx = np.zeros((k, out_size), np.int64)
+    wt = np.zeros((k, out_size), np.float32)
+    for o in range(out_size):
+        rows = np.flatnonzero(nz[:, o])
+        idx[:len(rows), o] = rows
+        wt[:len(rows), o] = w[rows, o]
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(wt.astype(np.float64)).to(device))
+
+
+def _tap_sum(x, taps, dim: int):
+    """Resize float32 (H, W) along `dim` by a tap sum, elementwise ops only,
+    so every output's sum runs in the same order on any thread count. Each
+    tap is a fused multiply-add: the product of two float32 values is exact
+    in float64, and the sum is rounded to float32."""
+    idx, wt = taps
+    out = None
+    for k in range(idx.shape[0]):
+        wk = wt[k][:, None] if dim == 0 else wt[k][None, :]
+        term = torch.index_select(x, dim, idx[k]).double() * wk
+        out = (term if out is None else out.double() + term).float()
+    return out
+
+
 def resize_bilinear(img, shape):
-    """(H, W) -> shape, matching jax.image.resize(img, shape, "linear")."""
+    """(H, W) -> shape, matching jax.image.resize(img, shape, "linear"):
+    a tap sum on the CPU, two dense products elsewhere (see the module
+    note)."""
     h, w = img.shape
     oh, ow = shape
     out = img
+    cpu = img.device.type == "cpu"
     if oh != h:
-        out = _resize_weights(h, oh, img.device).T @ out
+        out = (_tap_sum(out, _resize_taps(h, oh, img.device), 0) if cpu
+               else _resize_weights(h, oh, img.device).T @ out)
     if ow != w:
-        out = out @ _resize_weights(w, ow, img.device)
+        out = (_tap_sum(out, _resize_taps(w, ow, img.device), 1) if cpu
+               else out @ _resize_weights(w, ow, img.device))
     return out
 
 

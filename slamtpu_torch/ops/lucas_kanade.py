@@ -13,9 +13,10 @@ takes the plain version `lk_level_plain` / `lk_level_1d_plain` (tensor ops,
 gathers by K1's plain version `gather_windows_plain`, one host sync per
 solver iteration for the stop rule); a CUDA tensor launches the
 hand-written level kernel slamtpu_torch/csrc/lk_level.cu in its 2-D or 1-D
-mode (one cooperative launch per level: gathers into shared memory, the
-whole solver loop and its stop rule on the device) or raises. On the card
-the cascade therefore issues no host sync in either mode.
+mode (one plain launch per level, after one small memset: gathers into
+registers and shared memory, the whole solver loop and its stop rule on
+the device, with no grid barrier) or raises. On the card the cascade therefore issues no
+host sync in either mode.
 
 Semantics kept exactly, because results depend on them:
   - the level loop stops when at most min(lk_min_active, sum(ok) // 32)
@@ -43,6 +44,10 @@ from .image import pyramid_level_shape
 from .window_gather import gather_windows_plain
 
 LK_PATCH_MARGIN = 6
+
+# Largest half-window the CUDA level kernel takes: each lane holds its
+# T x T / 32 window pixels in registers, at most 32 of them.
+LK_KERNEL_MAX_WINDOW = 15
 
 # Lane budget of the compacted failed-prior retry cascade.
 RETRY_CAP = 256
@@ -232,28 +237,33 @@ def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
                   escape_fail: bool = False, return_counts: bool = False,
                   one_d: bool = False):
     """Launch the level kernel, in its 1-D mode with one_d (no checks
-    beyond the wrapper's). A grid that cannot be resident at once is
-    refused by the launch and raises. With return_counts, also its
-    (iters + 1) barrier words: word k holds the grid's running count
-    before iteration k in its bits above LK_LEVEL_ARRIVE_BITS and, if that
-    check ran, the arrived blocks below them (see lk_level.cu)."""
+    beyond the wrapper's). With return_counts, also the stop rule's
+    running counts before each iteration, counts (iters + 1,) int32
+    (counts[0]: the points alive after the gate), and K, the iterations the
+    level ran (0-d int32), both on the device (see lk_level.cu)."""
     stack, img = d1["stack"], d2["img"]
     n = p_lvl.shape[0]
+    iters = int(iters)
+    dev = flow.device
     flow_out = torch.empty_like(flow)
     ok_out = torch.empty_like(ok)
-    counts = torch.zeros(int(iters) + 1, dtype=torch.int32,
-                         device=flow.device)
+    # Per-point flow after each iteration and iterations run; the zeroed
+    # words hold the histogram and the ticket, then the kernel's counts
+    # and K.
+    hist = torch.empty((iters + 1) * n * 2, dtype=torch.float32, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    sync = torch.zeros(2 * iters + 5, dtype=torch.int32, device=dev)
     if n:
         lib = kernels.library()
         h, w = hw
         code = lib.slamtpu_lk_level(
             stack.data_ptr(), img.data_ptr(), p_lvl.data_ptr(),
             flow.data_ptr(), ok.data_ptr(), flow_out.data_ptr(),
-            ok_out.data_ptr(), counts.data_ptr(), stack.shape[1],
-            stack.shape[2], n, int(h), int(w), int(window), int(iters),
-            int(pad), int(min_active), int(bool(escape_fail)),
-            int(bool(one_d)), float(eps), float(eig_thresh),
-            kernels.stream_ptr(flow.device),
+            ok_out.data_ptr(), hist.data_ptr(), steps.data_ptr(),
+            sync.data_ptr(), stack.shape[1], stack.shape[2], n, int(h),
+            int(w), int(window), iters, int(pad), int(min_active),
+            int(bool(escape_fail)), int(bool(one_d)), float(eps),
+            float(eig_thresh), kernels.stream_ptr(dev),
         )
         kernels.check(code, "slamtpu_lk_level")
         if one_d:
@@ -261,7 +271,8 @@ def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
         else:
             lk_level.launches += 1
     if return_counts:
-        return flow_out, ok_out, counts
+        return flow_out, ok_out, sync[iters + 3:2 * iters + 4], \
+            sync[2 * iters + 4]
     return flow_out, ok_out
 
 
@@ -276,6 +287,9 @@ def _route_level(d1, d2, p_lvl, flow, ok, hw, window, pad) -> str:
     if not all(x.is_contiguous() for x in (d1["stack"], d2["img"], p_lvl,
                                            flow, ok)):
         raise ValueError("lk_level: inputs must be contiguous")
+    if window > LK_KERNEL_MAX_WINDOW:
+        raise ValueError(f"lk_level: the level kernel takes windows up to "
+                         f"{LK_KERNEL_MAX_WINDOW}, got {window}")
     return "cuda"
 
 
@@ -294,10 +308,6 @@ def lk_level(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
 # Launches of the CUDA level kernel in this process; the CPU path never
 # counts.
 lk_level.launches = 0
-
-# Bits of a level-kernel barrier word that count arrived blocks
-# (kArriveBits in lk_level.cu).
-LK_LEVEL_ARRIVE_BITS = 12
 
 
 def lk_level_1d_plain(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,

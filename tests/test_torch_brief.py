@@ -117,6 +117,38 @@ def test_extractor_describe_matches_jax():
     assert diff <= 0.001 * 256 * len(pairs), diff
 
 
+def test_extractor_brief_seed_matches_jax():
+    """The port's Extractor takes the JAX package's parameters in the same
+    positional order (brief_seed before subpix), and a non-default seed
+    given positionally draws the JAX package's pattern and descriptors."""
+    import inspect
+
+    import jax.numpy as jnp
+    from slamtpu.models.extractor import Extractor as JExtractor
+    from slamtpu_torch.models.extractor import Extractor as TExtractor
+
+    def positional(cls):
+        return [p.name for p in inspect.signature(cls).parameters.values()
+                if p.kind == p.POSITIONAL_OR_KEYWORD]
+
+    assert positional(TExtractor) == positional(JExtractor)
+    img, kp, _ = _image_and_keypoints()
+    args = (400, 12, (7, 10), 24, 1e-4, 512, 7)
+    jex = JExtractor(*args)
+    tex = TExtractor(*args, device="cpu")
+    assert not tex.subpix
+    np.testing.assert_array_equal(tex.pattern.numpy(),
+                                  np.asarray(jex.pattern))
+    assert not np.array_equal(tex.pattern.numpy(), tfeat.brief_pattern())
+    jdesc = jex.describe(jnp.asarray(img), kp)
+    tdesc = tex.describe(torch.from_numpy(img), kp)
+    assert [d is None for d in tdesc] == [d is None for d in jdesc]
+    pairs = [(t, j) for t, j in zip(tdesc, jdesc) if j is not None]
+    assert len(pairs) > 100
+    diff = sum(int(np.unpackbits(t ^ j).sum()) for t, j in pairs)
+    assert diff <= 0.001 * 256 * len(pairs), diff
+
+
 @pytest.fixture(scope="module")
 def runs():
     merges = {"jax": 0, "torch": 0}

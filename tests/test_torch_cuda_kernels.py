@@ -264,24 +264,102 @@ def test_lk_level_all_dead_is_unchanged(level):
 
 
 @pytest.mark.parametrize("n", [
-    16 * 1024,   # 2048 blocks: more than the card holds at once
-    8 * 4096,    # 4096 blocks: more than the barrier's arrival bits count
+    16 * 1024,   # more blocks than the earlier cooperative design held
+    8 * 4096,    # more blocks than its barrier's arrival bits counted
+    40000,
 ])
-def test_lk_level_rejects_beyond_capacity(n):
-    """The launch refuses the grid and the wrapper raises; the refusal
-    leaves no error behind for the next launch."""
-    d1, d2, _, _, _, hw = _level_inputs(0, 1, seed=1)
-    kw = dict(hw=hw, window=9, iters=30, eps=1e-2, eig_thresh=1e-4, pad=PAD)
-    p_lvl = torch.full((n, 2), 50, dtype=torch.int32, device="cuda")
-    flow = torch.zeros((n, 2), device="cuda")
-    ok = torch.ones(n, dtype=torch.bool, device="cuda")
+def test_lk_level_runs_past_the_old_cap(n):
+    """No residency or arrival-bit cap on N: a grid of thousands of blocks
+    runs in one launch and agrees with the plain version: ok masks on >=
+    99.5% of the points alive at entry, flows of the points ok in both
+    within 1e-3 px for >= 99% of them and within 2 * lk_epsilon for all
+    (among ~10^4 points a few steps straddle lk_epsilon, so a point stops
+    one iteration apart: only the order of the window sums differs); dead
+    points keep their flow."""
+    d1, d2, p_lvl, flow, ok, hw = _level_inputs(0, n, seed=n)
+    kw = dict(hw=hw, window=9, iters=30, eps=1e-2, eig_thresh=1e-4, pad=PAD,
+              min_active=16)
     before = lk.lk_level.launches
-    with pytest.raises(RuntimeError, match="cudaError"):
-        lk.lk_level(d1, d2, p_lvl, flow, ok, **kw)
-    assert lk.lk_level.launches == before
-    lk.lk_level(d1, d2, p_lvl[:1024], flow[:1024], ok[:1024], **kw)
+    flow_k, ok_k = lk.lk_level(d1, d2, p_lvl, flow, ok, **kw)
     torch.cuda.synchronize()
     assert lk.lk_level.launches == before + 1
+    flow_p, ok_p = lk.lk_level_plain(d1, d2, p_lvl, flow, ok, **kw)
+    alive = ok.cpu().numpy()
+    ok_kn, ok_pn = ok_k.cpu().numpy(), ok_p.cpu().numpy()
+    assert not ok_kn[~alive].any()
+    assert (ok_kn == ok_pn)[alive].mean() >= 0.995
+    both = ok_kn & ok_pn
+    d = np.abs(flow_k.cpu().numpy()[both] - flow_p.cpu().numpy()[both])
+    assert (d <= 1e-3).all(-1).mean() >= 0.99 and d.max() <= 2e-2, d.max()
+    np.testing.assert_array_equal(flow_k.cpu().numpy()[~alive],
+                                  flow.cpu().numpy()[~alive])
+    assert ok_kn.sum() > 0.3 * n
+
+
+@pytest.mark.parametrize("one_d,eps", [(False, 1e-2), (True, 3e-2)])
+def test_lk_level_global_stop_cuts_points_mid_run(one_d, eps):
+    """min_active above the live count / 32 makes the stop threshold
+    live // 32. At level 3 with these inputs the level stops (K < iters;
+    the plain version on the CPU: K = 16 in 2-D, 24 in 1-D) while points
+    still run, so the kernel's warps run those points past K and the
+    resolve must give them their flow after K iterations with ok set, as
+    the while_loop does. (At level 0 more than live / 32 points still run
+    after 30 iterations, so the loop never stops early there.)"""
+    inputs = _level_1d_inputs if one_d else _level_inputs
+    d1, d2, p_lvl, flow, ok, hw = inputs(3, 1024, seed=33)
+    kw = dict(hw=hw, window=9, iters=30, eps=eps, eig_thresh=1e-4, pad=PAD,
+              min_active=10 ** 6)
+    flow_k, ok_k, counts, its = lk.lk_level_cuda(
+        d1, d2, p_lvl, flow, ok, return_counts=True, one_d=one_d, **kw)
+    plain = lk.lk_level_1d_plain if one_d else lk.lk_level_plain
+    flow_p, ok_p = plain(d1, d2, p_lvl, flow, ok, **kw)
+    torch.cuda.synchronize()
+    counts, k = counts.cpu().numpy(), int(its)
+    live = counts[0]
+    assert 0 < k < 30 and counts[k] <= live // 32
+    assert counts[k] > 0, "no point was running at the stop"
+    assert (counts[:k] > live // 32).all()
+    ok_kn, ok_pn = ok_k.cpu().numpy(), ok_p.cpu().numpy()
+    alive = ok.cpu().numpy()
+    assert (ok_kn == ok_pn)[alive].mean() >= 0.995
+    both = ok_kn & ok_pn
+    d = np.abs(flow_k.cpu().numpy()[both] - flow_p.cpu().numpy()[both])
+    assert d.max() <= 1e-3, d.max()
+    if one_d:
+        assert not flow_k[:, 0].any()
+
+
+@pytest.mark.parametrize("window", [3, 6, 11, 15])
+@pytest.mark.parametrize("one_d", [False, True])
+def test_lk_level_window_buckets_match_plain(window, one_d):
+    """Both register buckets of window pixels a lane (12 up to window 9,
+    the tests above at 9; 32 up to 15) agree with the plain version at
+    level 0 on a pyramid padded for the window; a window past the kernel's
+    largest raises."""
+    scene = make_scene(n_frames=1, height=376, width=1241, n_points=6000,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    pad = lk.lk_pad(window)
+    pyr = [lk_pyramid_impl(torch.from_numpy(im.astype(np.float32)).cuda(),
+                           levels=0, pad=pad)[0] for im in scene.frame(0)]
+    rng = np.random.default_rng(window)
+    n = 256
+    p_lvl = np.stack([rng.uniform(0, 375, n), rng.uniform(0, 1240, n)],
+                     -1).astype(np.int32)
+    flow = np.stack([rng.normal(0.0, 1.0, n), rng.normal(-3.0, 2.0, n)],
+                    -1).astype(np.float32)
+    ok = rng.uniform(size=n) < 0.9
+    args = [torch.from_numpy(a).cuda() for a in (p_lvl, flow, ok)]
+    kw = dict(hw=pyramid_level_shape(pyr[0], pad), window=window, iters=30,
+              eps=1e-2, eig_thresh=1e-4, pad=pad, min_active=16)
+    fn, plain = ((lk.lk_level_1d, lk.lk_level_1d_plain) if one_d
+                 else (lk.lk_level, lk.lk_level_plain))
+    out = fn(pyr[0], pyr[1], *args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(pyr[0], pyr[1], *args, **kw)
+    _assert_level_agrees(out, ref, args[2])
+    assert out[1].sum() > 0.3 * n
+    with pytest.raises(ValueError, match="windows up to"):
+        fn(pyr[0], pyr[1], *args, **{**kw, "window": 16})
 
 
 def test_fb_retry_compact_issues_no_host_sync():

@@ -20,6 +20,7 @@ from slamtpu.ops.lucas_kanade import lk_pad
 from slamtpu.ops.lucas_kanade import pinv2x2_sym as j_pinv
 from slamtpu_torch.convert import pyramid_from_numpy, pyramid_to_numpy
 from slamtpu_torch.ops.image import build_lk_pyramid as t_pyramid
+from slamtpu_torch.ops.image import resize_bilinear
 from slamtpu_torch.ops.lucas_kanade import fb_track_merged as t_fb
 from slamtpu_torch.ops.lucas_kanade import lk_flow as t_lk_flow
 from slamtpu_torch.ops.lucas_kanade import pinv2x2_sym as t_pinv
@@ -41,6 +42,41 @@ def test_pyramid_matches_jax(h, w, dtype):
         assert lt["stack"].shape == sj.shape
         np.testing.assert_allclose(lt["stack"], sj, rtol=0, atol=1e-6)
         np.testing.assert_array_equal(lt["Gyx"], lt["stack"][5])
+
+
+def test_pyramid_is_thread_independent():
+    """At KITTI size the port's pyramid is bit-equal at 1 and 4 torch
+    threads: the half-resize sums each output's nonzero taps in a fixed
+    order. The tap sum stays within 1e-6 of the dense product with the same
+    weight matrices (the port's earlier form, whose pyramid
+    test_pyramid_matches_jax holds to the JAX package's), and of
+    jax.image.resize where the size halves exactly."""
+    import jax
+
+    from slamtpu_torch.ops.image import _resize_weights_np
+
+    rng = np.random.default_rng(376)
+    img = rng.uniform(0, 1, (376, 1241)).astype(np.float32)
+    stacks = {}
+    try:
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            stacks[n] = [lv["stack"].numpy() for lv in
+                         t_pyramid(torch.from_numpy(img), levels=3, pad=17)]
+    finally:
+        torch.set_num_threads(2)
+    for a, b in zip(stacks[1], stacks[4]):
+        np.testing.assert_array_equal(a, b)
+    x = img.astype(np.float64)
+    for shape in ((188, 621), (376, 621), (188, 1241)):
+        dense = (_resize_weights_np(376, shape[0]).T.astype(np.float64) @ x
+                 @ _resize_weights_np(1241, shape[1]).astype(np.float64))
+        out = resize_bilinear(torch.from_numpy(img), shape).numpy()
+        np.testing.assert_allclose(out, dense, rtol=0, atol=1e-6)
+    ref = np.asarray(jax.image.resize(jnp.asarray(img), (188, 1241),
+                                      "linear"))
+    out = resize_bilinear(torch.from_numpy(img), (188, 1241)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
 
 def test_pyramid_roundtrip_through_convert():
