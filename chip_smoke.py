@@ -7,7 +7,8 @@ Phases, one line each; any failure raises and exits nonzero:
   2. build: nvcc builds slamtpu_torch/csrc/*.cu into build/slamtpu_torch/;
   3. K1 (window gather) against its plain PyTorch version at the LK level-0
      shapes — must be equal — with median CUDA-event times of both and of
-     the one advanced-indexing call that computes the same gather;
+     the one advanced-indexing call that computes the same gather, and the
+     device time beside the earlier design's (EARLIER_K2_K1_DEVICE_MS);
   4. K2 (suppression + NMS, one launch) likewise at the detection shapes —
      bit-exact;
   4b. the LK level kernel against its plain version on a real pyramid pair
@@ -197,6 +198,14 @@ def _no_sync(fn, record):
     return wrapped
 
 
+# Device ms of K1's and K2's earlier designs (K1 one 256-thread block a
+# point, K2 a per-pixel walk of the hit list) at phases 3, 3b and 4's
+# shapes, as measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+# 6); printed beside this run's.
+EARLIER_K2_K1_DEVICE_MS = {("k1", 6, 19): 0.0091, ("k1", 1, 32): 0.0051,
+                           "k1_subpix": 0.0034, "k2": 0.0147}
+
+
 def phase_k1(dev):
     """Window gather at the level-0 LK shapes: 6-map stack, T = 19, and the
     image patch, P = 32, N = 1024 points each."""
@@ -236,8 +245,10 @@ def phase_k1(dev):
         covered = _covered_pixels((hp, wp), start, t)
         b_ms, _ = _bound(4 * c * covered + 4 * n * c * t * t + 8 * n)
         _log("k1", shape=f"({c},{hp},{wp})", window=t, n=n, equal=True,
-             ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
-             library_ms=f"{l_ms:.4f}", bound_ms=f"{b_ms:.6f}")
+             ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms),
+             device_ms_earlier_kernel=EARLIER_K2_K1_DEVICE_MS[("k1", c, t)],
+             plain_ms=f"{p_ms:.4f}", library_ms=f"{l_ms:.4f}",
+             bound_ms=f"{b_ms:.6f}")
         dev_ms = None if d_ms is None or dev_ms is None else dev_ms + d_ms
         ms += k_ms
         plain_ms += p_ms
@@ -296,7 +307,9 @@ def phase_k1_subpix(dev):
     b_ms, b_by = _bound(4 * _covered_pixels((h, w), start, 3)
                         + 4 * n * 9 + 8 * n)
     _log("k1_subpix", shape=f"(1,{h},{w})", window=3, n=n, equal=True,
-         ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
+         ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms),
+         device_ms_earlier_kernel=EARLIER_K2_K1_DEVICE_MS["k1_subpix"],
+         plain_ms=f"{p_ms:.4f}",
          library_ms=f"{l_ms:.4f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by)
     return dict(shape=f"(1,{h},{w}) 3x3 N={n}", ms=k_ms, device_ms=d_ms,
                 plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
@@ -333,8 +346,9 @@ def phase_k2(dev):
     b_ms, b_by = _bound(2 * 4 * h * w + 9 * n)
     _log("k2", shape=f"({h},{w})", n=n, valid=int(valid.sum()), radius=r,
          bit_exact=True, launches_per_call=1, kept=int((out > 0).sum()),
-         ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms), plain_ms=f"{p_ms:.4f}",
-         bound_ms=f"{b_ms:.6f}", library_ms="null")
+         ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms),
+         device_ms_earlier_kernel=EARLIER_K2_K1_DEVICE_MS["k2"],
+         plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}", library_ms="null")
     return {"name": "suppress_nms", "route": "cuda",
             "source": "slamtpu_torch/csrc/suppress_nms.cu",
             "replaces": "slamtpu/ops/detect_pallas.py:55",

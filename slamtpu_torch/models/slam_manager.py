@@ -27,6 +27,7 @@ with NotImplementedError naming where it stands: threaded mode
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Optional
 
 import numpy as np
@@ -115,6 +116,10 @@ class SlamManager:
         self.frame_id = 0
         self.n_resets = 0
         self._pending_kf = None
+        # Frames waiting for the worker threads of threaded mode; sequential
+        # mode processes each frame inside add_image and never enqueues.
+        self._image_queue = []
+        self._queue_lock = threading.Lock()
 
     # -- feeding (SLAM.jl:237-257) --------------------------------------------
 
@@ -125,6 +130,11 @@ class SlamManager:
     def add_stereo_image(self, image: np.ndarray, right_image: np.ndarray,
                          time: float):
         self._process_frame(image, right_image, time)
+
+    def get_queue_size(self) -> int:
+        """Frames fed but not yet taken up (always 0 in sequential mode)."""
+        with self._queue_lock:
+            return len(self._image_queue)
 
     # -- per-frame pipeline (SLAM.jl:187-230) -----------------------------------
 

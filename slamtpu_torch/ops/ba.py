@@ -36,6 +36,44 @@ from .smallalg import inv3x3, solve_psd
 FREE_CAP = 8
 
 
+def _cpu_f64(fn, *args):
+    """fn(*args); on the CPU computed in float64 and cast back to float32.
+
+    CPU GEMM splits a long reduction by thread, so a float32 sum over the
+    observations or points ends in bits that follow torch's thread count.
+    In float64 every product of two float32 values is exact, and sums taken
+    in another order differ only in low float64 bits, which the cast back
+    to float32 drops unless the sum lies at a float32 rounding tie (rare).
+    So the CPU result is the same at any thread count but for such ties.
+    On the card fn runs as it is, in float32.
+    """
+    if args[0].device.type != "cpu":
+        return fn(*args)
+    return fn(*(a.double() for a in args)).float()
+
+
+def _schur_terms(B, V_inv, g_x):
+    """The point blocks' shares of the reduced camera system,
+    sum_x B_x V_x^-1 B_x^T and sum_x B_x V_x^-1 g_x.
+
+    On the CPU both come from one float32 product B_x V_x^-1 a point (a
+    3-term sum, the same at any thread count), summed over the points in
+    float64 as _cpu_f64 does; on the card, the two float32 einsums. XLA
+    orders the first term so too (B_x V_x^-1 first) but takes V_x^-1 g_x
+    first in the second; no order is more exact than another, and which
+    one the CPU takes moves the route parity tests' poses by cm (PERF.md
+    section 6).
+    """
+    if B.device.type != "cpu":
+        return (torch.einsum("xab,xbc,xdc->ad", B, V_inv, B),
+                torch.einsum("xab,xbc,xc->a", B, V_inv, g_x))
+    BV = torch.einsum("xab,xbc->xac", B, V_inv)
+    return (_cpu_f64(lambda bv, b: torch.einsum("xac,xdc->ad", bv, b),
+                     BV, B),
+            _cpu_f64(lambda bv, g: torch.einsum("xac,xc->a", bv, g),
+                     BV, g_x))
+
+
 def _residual_one(pose_theta, point, px_yx, intrinsics):
     """Single-observation reprojection residual (2,) in (y, x) order, and
     the camera-frame depth."""
@@ -132,14 +170,16 @@ def _lm_rounds(poses, points, pose_free_mask, obs_pose, obs_point, obs_px,
         Jp = Jp * free_p[obs_pose][:, None, None]
 
         JpJp = torch.einsum("oia,oib->oab", Jp, Jp).reshape(-1, 36)
-        U = (pose_onehot.T @ JpJp).reshape(P, 6, 6)
+        U = _cpu_f64(lambda o, v: o.T @ v, pose_onehot, JpJp).reshape(
+            P, 6, 6)
         JxJx = torch.einsum("oia,oib->oab", Jx, Jx)       # (O, 3, 3)
         V = torch.sum(JxJx[table] * slot_w[..., None, None], dim=1)
         A = torch.einsum("oia,oib->oab", Jp, Jx)          # (O, 6, 3)
         B = torch.einsum("xkp,xkab->xpab", slot_pose, A[table]).reshape(
             X, n6, 3)
 
-        g_p = (pose_onehot.T @ torch.einsum("oia,oi->oa", Jp, r)).reshape(n6)
+        g_p = _cpu_f64(lambda o, v: o.T @ v, pose_onehot,
+                       torch.einsum("oia,oi->oa", Jp, r)).reshape(n6)
         Jxr = torch.einsum("oia,oi->oa", Jx, r)           # (O, 3)
         g_x = torch.sum(Jxr[table] * slot_w[..., None], dim=1)  # (X, 3)
 
@@ -152,8 +192,9 @@ def _lm_rounds(poses, points, pose_free_mask, obs_pose, obs_point, obs_px,
         # caller orders first: the solve runs on the leading 6 * FREE_CAP
         # rows however many constant observer poses pad out P.
         S = torch.block_diag(*[U_d[i] for i in range(P)])
-        S = S - torch.einsum("xab,xbc,xdc->ad", B, V_inv, B)
-        rhs = -(g_p - torch.einsum("xab,xbc,xc->a", B, V_inv, g_x))
+        schur_S, schur_rhs = _schur_terms(B, V_inv, g_x)
+        S = S - schur_S
+        rhs = -(g_p - schur_rhs)
         # Constant/padded poses: identity rows/cols, zero rhs.
         S = (S * free_flat[:, None] * free_flat[None, :]
              + torch.diag(1.0 - free_flat))

@@ -196,3 +196,39 @@ def test_jacobians_match_jax():
                  (Jx_t.numpy(), np.asarray(Jx_j))):
         assert a.shape == b.shape
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def _prewarm_buffer(P, X, O):
+    """bench.py's prewarm_ba buffer at (P, X, O), as
+    scripts/ba_thread_probe.py builds it."""
+    import importlib.util
+    import pathlib
+
+    from slamtpu_torch.datasets.synthetic import make_scene
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "scripts"
+            / "ba_thread_probe.py")
+    spec = importlib.util.spec_from_file_location("ba_thread_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    scene = make_scene(n_frames=1, height=376, width=1241, n_points=100,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    return probe.prewarm_buffer(P, X, O, scene.camera.intrinsics_array())
+
+
+def test_packed_is_thread_independent():
+    """Local BA on the CPU gives the same bits at 1 and at 4 torch threads
+    on the probe's (P, X, O) = (16, 2048, 8192) problem: the long
+    reductions over observations and points are summed in float64."""
+    P, X, O = 16, 2048, 8192
+    buf = _prewarm_buffer(P, X, O)
+    kw = dict(P=P, X=X, O=O, iters1=5, iters2=10, repr_eps=5.0)
+    res = {}
+    try:
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            res[n] = tba.local_bundle_adjustment_packed(buf, **kw)
+    finally:
+        torch.set_num_threads(2)
+    for k in ("poses", "points", "outliers", "final_cost"):
+        assert torch.equal(res[1][k], res[4][k]), k

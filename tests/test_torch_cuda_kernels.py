@@ -38,6 +38,7 @@ def _gen(seed):
     (6, 60, 300, 19, 53),
     (1, 47, 131, 32, 7),
     (2, 40, 500, 19, 0),
+    (1, 376, 1241, 3, 3168),    # subpixel refinement: 3x3, 11 x 36 x 8
 ])
 def test_window_gather_matches_plain(c, h, w, t, n):
     """Exact: the kernel copies values (no arithmetic). Starts run past the
@@ -109,6 +110,151 @@ def test_suppress_and_nms_bit_exact(h, w, n, radius, edges):
     ref = ds.suppress_and_nms_plain(resp, yx, valid, radius=radius,
                                     min_response=1e-4)
     assert torch.equal(out, ref)
+
+
+def test_window_gather_start_not_8_byte_aligned():
+    """Starts whose pointer is 4 bytes off an 8-byte boundary are read as
+    two int32 loads (the int2 load needs 8-byte alignment); equal."""
+    g = _gen(21)
+    src = torch.randn((6, 410, 1275), generator=g).cuda()
+    n = 1024
+    flat = torch.zeros(2 * n + 1, dtype=torch.int32)
+    flat[1:] = torch.stack([torch.randint(0, 410, (n,), generator=g),
+                            torch.randint(0, 1275, (n,), generator=g)],
+                           dim=-1).reshape(-1)
+    start = flat.cuda()[1:].view(n, 2)
+    assert start.is_contiguous() and start.data_ptr() % 8 == 4
+    out = wg.gather_windows(src, start, 19, 19)
+    assert torch.equal(out, wg.gather_windows_plain(src, start, 19, 19))
+
+
+def test_window_gather_refuses_more_than_int32_elements():
+    """N * C * t1 * t2 past 2^31 - 1 raises instead of wrapping its
+    indices (the output is allocated, never written)."""
+    src = torch.zeros((1, 64, 64), device="cuda")
+    n = 2 ** 31 // (64 * 64) + 1
+    start = torch.zeros((n, 2), dtype=torch.int32, device="cuda")
+    before = wg.gather_windows.launches
+    with pytest.raises(RuntimeError, match="slamtpu_window_gather"):
+        wg.gather_windows(src, start, 64, 64)
+    assert wg.gather_windows.launches == before
+
+
+def _k2_case(h, w, yx, valid, radius, seed):
+    g = _gen(seed)
+    resp = (torch.rand((h, w), generator=g) * 2e-3).cuda()
+    yx, valid = yx.cuda(), valid.cuda()
+    before = ds.suppress_and_nms.launches
+    out = ds.suppress_and_nms(resp, yx, valid, radius=radius,
+                              min_response=1e-4)
+    torch.cuda.synchronize()
+    assert ds.suppress_and_nms.launches == before + 1
+    ref = ds.suppress_and_nms_plain(resp, yx, valid, radius=radius,
+                                    min_response=1e-4)
+    assert torch.equal(out, ref)
+    return out
+
+
+def _random_points(h, w, n, seed, p_valid=0.7):
+    g = _gen(seed)
+    yx = torch.stack([torch.randint(0, h, (n,), generator=g),
+                      torch.randint(0, w, (n,), generator=g)],
+                     dim=-1).to(torch.int32)
+    return yx, torch.rand((n,), generator=g) < p_valid
+
+
+@pytest.mark.parametrize("h,w,n,radius,p_valid", [
+    (376, 1241, 1024, 0, 0.7),     # r = 0: each point zeroes itself
+    (376, 1241, 6, 40, 1.0),       # squares wider than a tile
+    (376, 1241, 1024, 17, 0.0),    # every point invalid
+    (376, 1241, 4096, 17, 0.7),    # many hits a tile, two chunks
+    (376, 1241, 4096, 3, 0.7),
+])
+def test_suppress_and_nms_bit_exact_extremes(h, w, n, radius, p_valid):
+    yx, valid = _random_points(h, w, n, seed=n + radius, p_valid=p_valid)
+    out = _k2_case(h, w, yx, valid, radius, seed=radius)
+    if p_valid == 0.0:
+        assert int((out > 0).sum()) > 0
+
+
+def _tile_border_points(h, w, th=8, tw=32):
+    """A point on each crossing of the row borders (k th - 1, k th) and the
+    column borders (k tw - 1, k tw) of the image: every tile border of any
+    tile whose height is a multiple of 8 and width a multiple of 32, plus
+    the image's last row and column and just outside the image."""
+    rows = sorted({v for k in range(0, h // th + 1) for v in
+                   (k * th - 1, k * th)} | {h - 1, h})
+    cols = sorted({v for k in range(0, w // tw + 1) for v in
+                   (k * tw - 1, k * tw)} | {w - 1, w})
+    return torch.tensor([(y, x) for y in rows for x in cols],
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("radius", [0, 1, 3])
+def test_suppress_and_nms_bit_exact_on_tile_borders(radius):
+    """Every point on a tile border (and the image's), all valid, beside
+    200 random ones: bit-exact."""
+    h, w = 376, 1241
+    border = _tile_border_points(h, w)
+    yx, valid = _random_points(h, w, 200, seed=40 + radius)
+    yx = torch.cat([border, yx])
+    valid = torch.cat([torch.ones(len(border), dtype=torch.bool), valid])
+    _k2_case(h, w, yx, valid, radius, seed=50 + radius)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("radius,n", [(17, 1024), (1, 3000)])
+def test_suppress_and_nms_bit_exact_at_either_yx_alignment(offset, radius,
+                                                          n):
+    """Tile borders and random points through the wrapper, with yx 8-byte
+    aligned (read as int2) and 4 bytes off (read as two int32 loads)."""
+    h, w = 376, 1241
+    resp = (torch.rand((h, w), generator=_gen(60 + offset)) * 2e-3).cuda()
+    yx, valid = _random_points(h, w, n, seed=70 + offset)
+    border = _tile_border_points(h, w)
+    yx = torch.cat([border, yx])
+    valid = torch.cat([torch.ones(len(border), dtype=torch.bool),
+                       valid]).cuda()
+    flat = torch.zeros(2 * len(yx) + offset, dtype=torch.int32)
+    flat[offset:] = yx.reshape(-1)
+    yx_dev = flat.cuda()[offset:].view(-1, 2)
+    assert yx_dev.data_ptr() % 8 == 4 * offset
+    assert torch.equal(yx_dev.cpu(), yx)
+    out = ds.suppress_and_nms(resp, yx_dev, valid, radius=radius,
+                              min_response=1e-4)
+    ref = ds.suppress_and_nms_plain(resp, yx_dev, valid, radius=radius,
+                                    min_response=1e-4)
+    assert torch.equal(out, ref)
+
+
+def test_suppress_and_nms_square_extents_every_radius():
+    """On a constant response the output is 1 outside the squares and 0
+    inside, so it shows each square's exact extent: r = 0 to 45 (squares
+    up to 91 wide, across up to 4 words of a row's mask), with a point at
+    every column offset modulo 32 and on tile and image corners."""
+    h, w = 376, 1241
+    ones = torch.ones((h, w), device="cuda")
+    pts = [(37 * j % h, 38 * j + j % 32) for j in range(32)]
+    pts += [(0, 0), (h - 1, w - 1), (15, 127), (16, 128), (h - 1, 0)]
+    yx = torch.tensor(pts, dtype=torch.int32, device="cuda")
+    valid = torch.ones(len(pts), dtype=torch.bool, device="cuda")
+    for radius in range(46):
+        out = ds.suppress_and_nms(ones, yx, valid, radius=radius,
+                                  min_response=0.5)
+        ref = ds.suppress_and_nms_plain(ones, yx, valid, radius=radius,
+                                        min_response=0.5)
+        assert torch.equal(out, ref), radius
+        assert 0 < int((ref == 0).sum()) < h * w, radius
+
+
+def test_suppress_and_nms_refuses_a_grid_past_65535_rows():
+    """A map taller than 65,535 tiles raises (the launch is refused and
+    reported), rather than wrapping."""
+    resp = torch.zeros((16 * 65535 + 1, 1), device="cuda")
+    yx = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    valid = torch.ones((1,), dtype=torch.bool, device="cuda")
+    with pytest.raises(RuntimeError, match="slamtpu_suppress_nms"):
+        ds.suppress_and_nms(resp, yx, valid, radius=1, min_response=1e-4)
 
 
 def _keyframe_inputs(dev, cap=1024, n_old=300, seed=3):

@@ -88,3 +88,10 @@ def test_trajectories_nearly_coincide(runs):
     inside the ATE bound (1 cm on a ~0.85 m path)."""
     j, t = runs["jax"], runs["torch"]
     assert np.abs(t["est"] - j["est"]).max() < 1e-2
+
+
+def test_queue_size_is_zero_in_sequential_mode(runs):
+    """Sequential mode processes each frame inside add_stereo_image, so
+    after the 8 frames nothing waits in either package's queue."""
+    assert runs["torch"]["sm"].get_queue_size() == 0
+    assert runs["jax"]["sm"].get_queue_size() == 0
