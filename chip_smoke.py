@@ -74,6 +74,26 @@ Phases, one line each; any failure raises and exits nonzero:
      every carry_adopt_kf free of host syncs (set_sync_debug_mode
      "error"); prints the FPS after 5 frames, the stage timers and the
      launch counts.
+  14. threaded mode: bench.py's 60-frame city scene with
+     Params(stereo=True, do_local_bundle_adjustment=True,
+     map_filtering=True, sequential=False), fed as bench.py feeds it (15
+     frames each taken up before the next, then at most 2 queued) and
+     ended by wait(), under the phase's own deadline, with the worker
+     threads checked alive before every wait; no sync debug mode (it is
+     process-wide). Asserts no reset, a finite 60-pose trajectory, no
+     pipelined dispatch, >= 2 BA solves, the 2-D level kernel and K2
+     launched and standalone K1, the 1-D mode and both keyframe programs
+     not, keyframes within [min - 2, max + 2] of three JAX CPU runs and
+     metric ATE <= 2x their largest + 0.01 m (JAX_THREADED_*); prints the
+     FPS over frames 16-60 with the drain included beside phase 5's, the
+     stage timers and the launch counts;
+  15. checkpoint / resume: 20 frames of the 30-frame city scene on
+     Params(stereo=True), save_state, load_state into a fresh
+     SlamManager on the card (same keyframes, map points and pose), frames
+     21-30 and finish(); asserts no reset, finite poses, the pipeline
+     restarted (pipelined dispatches after the resume), the level kernel,
+     K2 and keyframe_step_carry launched after the resume, and the resumed
+     frames' largest position error <= 2x the JAX CPU run's + 0.01 m.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -677,6 +697,7 @@ def phase_main_path(dev):
     path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
     n_kf = sm.map_manager.nb_keyframes
     fps = (len(frames) - warm) / (t1 - t_warm)
+    FPS["classic"] = fps
     _log("main_path", frames=len(frames), fps_after_5=f"{fps:.3f}",
          total_s=f"{t1 - t0:.3f}", keyframes=n_kf, resets=sm.n_resets,
          ate_m=f"{ate:.5f}", path_m=f"{path:.3f}",
@@ -1086,6 +1107,8 @@ JAX_ROUTES = {
 # FPS of the paths of this run, for phases that print theirs beside
 # another's.
 FPS = {}
+# The threaded phase's last result, read by scripts/threaded_runs.py.
+THREADED = {}
 
 
 def _stereo_route(dev, route, **overrides):
@@ -1265,6 +1288,240 @@ def phase_reference_path(dev):
     return rec["launches"]
 
 
+# The JAX package's CPU runs of phase 14's scene, Params and feeding
+# (scripts/cpu_path_reference.py jax threaded, three runs; PERF.md):
+# keyframes of each run and the largest metric ATE. Limits: [min - 2,
+# max + 2] keyframes, ATE <= 2 x the largest + 0.01 m.
+JAX_THREADED_KFS = (9, 9, 9)
+JAX_THREADED_ATE_M = 0.005233
+# The JAX package's CPU run of phase 15 (scripts/cpu_path_reference.py jax
+# checkpoint): the largest distance of frames 21-30 to the ground truth.
+# Limit: 2 x this + 0.01 m.
+JAX_CHECKPOINT_RESUMED_ERR_M = 0.09706
+# Seconds a threaded phase may wait for the workers (for a frame to be
+# taken up, for the queues to empty) before it fails as stalled.
+THREADED_DEADLINE_S = 300.0
+
+
+def _until(sm, done, what):
+    """Poll done() while every worker thread of `sm` lives; fail on a dead
+    worker or a stall, never hang."""
+    deadline = time.perf_counter() + THREADED_DEADLINE_S
+    while not done():
+        dead = [i for i, t in enumerate(sm._threads) if not t.is_alive()]
+        if dead:
+            raise AssertionError(f"threaded: worker thread(s) {dead} died "
+                                 f"waiting for {what}")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"threaded: stalled waiting for {what}")
+        time.sleep(0.002)
+
+
+def phase_threaded_path(dev):
+    """Phase 14: bench.py's threaded mode on its 60-frame city scene. Three
+    worker threads launch on the default stream: the manager thread tracks
+    (the 2-D level kernel) and detects at keyframes (K2), the mapper thread
+    runs the stereo cascade (the 2-D level kernel again), the estimator
+    thread local BA. No sync debug mode here: it is process-wide, and
+    another thread's legitimate sync would raise."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.eval.ate import ate_rmse
+    from slamtpu_torch.ops import keyframe_step as ks_mod
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("sync debug mode left on before the threaded "
+                             "phase")
+    scene, frames = _city_scene(60)
+    params = Params(stereo=True, do_local_bundle_adjustment=True,
+                    map_filtering=True, sequential=False)
+    saver = ReplaySaver()
+    sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
+                     slam_io=saver, device=dev)
+    resets = _counting_resets(sm)
+    TIMERS.reset()
+    _reset_counts()
+    ks_mod.keyframe_step.launches = 0
+    ks_mod.keyframe_step_carry.launches = 0
+    warm = 15
+    t0 = time.perf_counter()
+    # bench.py:184-197: the warm-up frames one at a time, then at most 2
+    # frames queued; FPS over frames 16-60 with the final wait() included.
+    for i, (left, right) in enumerate(frames):
+        if i < warm:
+            sm.add_stereo_image(left, right, float(scene.timestamps[i]))
+            _until(sm, lambda: sm.get_queue_size() == 0, f"frame {i}")
+            continue
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        _until(sm, lambda: sm.get_queue_size() < 2, f"room for frame {i}")
+        sm.add_stereo_image(left, right, float(scene.timestamps[i]))
+    _until(sm, lambda: not (sm.get_queue_size() or sm.mapper.keyframe_queue
+                            or sm.mapper.estimator.frame_queue),
+           "the queues to drain")
+    sm.wait()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    alive = [i for i, t in enumerate(sm._threads) if t.is_alive()]
+    if alive:
+        raise AssertionError(f"threaded: worker thread(s) {alive} outlived "
+                             "wait()")
+    launches = _read_counts()
+    summary = TIMERS.summary()
+
+    def calls(stage):
+        return summary.get(stage, {}).get("calls", 0)
+
+    est = saver.trajectory_xyz().astype(np.float64)
+    gt = np.stack([p[:3, 3] for p in scene.poses_wc])
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"threaded: trajectory {est.shape} not finite "
+                             f"/ not {gt.shape}")
+    ate = ate_rmse(est, gt, align_scale=False)
+    n_kf = sm.map_manager.nb_keyframes
+    kf_ids = sorted(f.id for f in sm.map_manager.frames_map.values())
+    fps = (len(frames) - warm) / (t1 - t_warm)
+    FPS["threaded"] = fps
+    THREADED.update(keyframes=n_kf, keyframe_ids=kf_ids, ate_m=ate,
+                    fps_after_15=fps, resets=resets["n"],
+                    ba_solves=calls("es.ba"),
+                    es_ba_mean_ms=summary.get("es.ba", {}).get("mean_ms"),
+                    sm_frame_mean_ms=summary.get("sm.frame",
+                                                 {}).get("mean_ms"))
+    _log("threaded", frames=len(frames), fps_after_15=f"{fps:.3f}",
+         classic_fps_after_5=f"{FPS['classic']:.3f}",
+         total_s=f"{t1 - t0:.3f}", keyframes=n_kf,
+         keyframe_ids=",".join(map(str, kf_ids)), resets=resets["n"],
+         ate_m=f"{ate:.5f}", dispatches=calls("fe.pipe.dispatch"),
+         ba_solves=calls("es.ba"), ba_applied=calls("es.ba_apply"),
+         ba_pending_after_wait=sm.mapper.estimator._pending is not None,
+         keyframe_programs=ks_mod.keyframe_step.launches,
+         carry_keyframe_programs=ks_mod.keyframe_step_carry.launches,
+         launches=json.dumps(launches, separators=(",", ":")))
+    print("[threaded] stage_timers " + json.dumps(_stage_summary(
+        summary, ("fe.", "mp.", "es.", "ex.", "mm.", "sm."))), flush=True)
+
+    if resets["n"]:
+        raise AssertionError(f"{resets['n']} reset(s) on the threaded path")
+    if calls("fe.pipe.dispatch"):
+        raise AssertionError(f"threaded: {calls('fe.pipe.dispatch')} "
+                             "pipelined dispatches, expected 0")
+    if calls("es.ba") < 2:
+        raise AssertionError(f"threaded: {calls('es.ba')} BA solves, "
+                             "expected >= 2")
+    _check_path_kernels("threaded", launches)
+    if ks_mod.keyframe_step.launches or ks_mod.keyframe_step_carry.launches:
+        raise AssertionError("threaded: a keyframe program ran")
+    lo, hi = min(JAX_THREADED_KFS) - 2, max(JAX_THREADED_KFS) + 2
+    if not lo <= n_kf <= hi:
+        raise AssertionError(f"threaded: {n_kf} keyframes, expected {lo} "
+                             f"to {hi}")
+    ate_bound = 2.0 * JAX_THREADED_ATE_M + 0.01
+    if not ate <= ate_bound:
+        raise AssertionError(f"threaded: metric ATE {ate:.4f} m > "
+                             f"{ate_bound:.4f} m")
+    return launches
+
+
+def phase_checkpoint_path(dev):
+    """Phase 15: 20 frames of the 30-frame city scene on the default path,
+    save_state, load_state into a fresh manager on the card, frames 21-30,
+    finish(). The load stops the pipeline and drops both pyramids; the
+    resumed run must restart it."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.io.checkpoint import load_state, save_state
+    from slamtpu_torch.ops import keyframe_step as ks_mod
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    scene, frames = _city_scene(30)
+    saver = ReplaySaver()
+    sm = SlamManager(Params(stereo=True), scene.camera,
+                     right_camera=scene.right_camera, slam_io=saver,
+                     device=dev)
+    resets = _counting_resets(sm)
+    _reset_counts()
+    for i in range(20):
+        sm.add_stereo_image(*frames[i], float(scene.timestamps[i]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pkl")
+        save_state(sm, path)
+        saved_bytes = os.path.getsize(path)
+        saver2 = ReplaySaver()
+        sm2 = SlamManager(Params(stereo=True), scene.camera,
+                          right_camera=scene.right_camera, slam_io=saver2,
+                          device=dev)
+        load_state(sm2, path)
+    loaded = (sm2.map_manager.nb_keyframes, len(sm2.map_manager.map_points))
+    saved = (sm.map_manager.nb_keyframes, len(sm.map_manager.map_points))
+    if loaded != saved or not np.allclose(sm2.current_frame.wc,
+                                          sm.current_frame.wc):
+        raise AssertionError(f"checkpoint: loaded {loaded} keyframes / map "
+                             f"points and pose differ from the saved "
+                             f"{saved}")
+    resets2 = _counting_resets(sm2)
+    before = _read_counts()
+    TIMERS.reset()
+    ks_mod.keyframe_step_carry.launches = 0
+    t0 = time.perf_counter()
+    for i in range(20, 30):
+        sm2.add_stereo_image(*frames[i], float(scene.timestamps[i]))
+    sm2.finish()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = _read_counts()
+    resumed = {k: launches[k] - before[k] for k in launches}
+    carry_programs = ks_mod.keyframe_step_carry.launches
+    summary = TIMERS.summary()
+    dispatches = summary.get("fe.pipe.dispatch", {}).get("calls", 0)
+
+    gt = np.stack([p[:3, 3] for p in scene.poses_wc])
+    ids = sorted(saver2.ids)
+    if ids[-10:] != list(range(21, 31)):
+        raise AssertionError(f"checkpoint: resumed frame ids {ids}")
+    est = np.asarray([saver2.positions[saver2.ids[f]]
+                      for f in range(21, 31)], np.float64)[:, [0, 2, 1]]
+    if not np.all(np.isfinite(est)):
+        raise AssertionError("checkpoint: resumed poses not finite")
+    err = np.linalg.norm(est - gt[20:], axis=1)
+    _log("checkpoint", saved_frames=20, resumed_frames=10,
+         checkpoint_bytes=saved_bytes, keyframes=loaded[0],
+         map_points=loaded[1], keyframes_after=sm2.map_manager.nb_keyframes,
+         resets=resets["n"] + resets2["n"], resumed_dispatches=dispatches,
+         resumed_carry_keyframe_programs=carry_programs,
+         resumed_max_err_m=f"{err.max():.5f}",
+         resumed_s=f"{t1 - t0:.3f}",
+         resumed_launches=json.dumps(resumed, separators=(",", ":")))
+
+    if resets["n"] or resets2["n"]:
+        raise AssertionError(f"checkpoint: {resets['n']} + {resets2['n']} "
+                             "reset(s)")
+    if dispatches <= 0:
+        raise AssertionError("checkpoint: the pipeline did not restart after "
+                             "the resume")
+    if (resumed["lk_level"] <= 0 or resumed["suppress_nms"] <= 0
+            or carry_programs <= 0):
+        raise AssertionError(f"checkpoint: after the resume the level "
+                             f"kernel, K2 or keyframe_step_carry never "
+                             f"launched: {resumed}, {carry_programs} "
+                             "keyframe programs")
+    _check_path_kernels("checkpoint", launches)
+    bound = 2.0 * JAX_CHECKPOINT_RESUMED_ERR_M + 0.01
+    if not err.max() <= bound:
+        raise AssertionError(f"checkpoint: resumed position error "
+                             f"{err.max():.4f} m > {bound:.4f} m")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1303,7 +1560,9 @@ def main() -> int:
              "nocarry": phase_nocarry_path(dev),
              "speculate": phase_speculate_path(dev),
              "brief": phase_brief_path(dev),
-             "reference": phase_reference_path(dev)}
+             "reference": phase_reference_path(dev),
+             "threaded": phase_threaded_path(dev),
+             "checkpoint": phase_checkpoint_path(dev)}
     # Standalone K1's headline numbers are at the shape its path gives it
     # (subpixel refinement); phase 3's LK shapes stay beside them.
     lk_shapes = {k: k1[k] for k in ("ms", "device_ms", "plain_ms",

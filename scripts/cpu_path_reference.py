@@ -2,8 +2,8 @@
 and print its result as one JSON line (`RESULT {...}`).
 
     JAX_PLATFORMS=cpu python scripts/cpu_path_reference.py jax|torch \
-        mono|real|default|variant|nocarry|speculate|brief|reference \
-        [--threads N] [--init-pose JSON]
+        mono|real|default|variant|nocarry|speculate|brief|reference|\
+        threaded|checkpoint [--threads N] [--init-pose JSON]
 
 mono: bench.py's 60-frame 376x1241 city scene (6000 points, seed 7), left
 images through `add_image` with `Params(stereo=False)` (bench.py's mono
@@ -21,6 +21,15 @@ phase 10), `speculate_keyframes=True` (phase 11), `do_local_matching=True`
 (BRIEF local-map matching, phase 12) and `fused_front_end=False,
 fused_stereo=False, do_local_matching=True` (the reference's own per-stage
 tracker and stereo matcher, phase 13); ATE is metric.
+threaded: bench.py's threaded mode (`chip_smoke.py` phase 14): the
+60-frame scene with `Params(stereo=True, do_local_bundle_adjustment=True,
+map_filtering=True, sequential=False)`, fed as bench.py feeds it (15 frames
+each taken up before the next, then at most 2 queued) and ended by
+`wait()`; ATE is metric, from the trajectory as wait() leaves it.
+checkpoint: the 30-frame scene on `Params(stereo=True)` (`chip_smoke.py`
+phase 15): 20 frames, `save_state`, `load_state` into a fresh manager,
+frames 21-30, `finish()`; `resumed_max_err_m` is the largest distance of
+frames 21-30 to the ground truth.
 
 These give the reference values that `chip_smoke.py` holds the port to on
 the card. The JSON holds resets, the frame initialization happened at,
@@ -31,7 +40,9 @@ five-point pose (`init_pose_cw`, camera-from-world), per frame the
 keypoints, keyframes and 3D points after it (`per_frame`), the keyframes'
 frame ids, the speculative adopts (`kf_adopts`), the map points that hold
 a BRIEF descriptor, the `merge_mappoints` calls and, for the port, torch's
-CPU thread count (`threads`; null for the JAX package).
+CPU thread count (`threads`; null for the JAX package), and the cores
+the process may use (`cpu_cores`, which XLA's CPU thread pool takes).
+The threaded and checkpoint routes print their own fields.
 
 --init-pose takes a JSON 4x4 camera-from-world matrix (for example another
 run's `init_pose_cw`) and puts it in place of the pose that the five-point
@@ -44,8 +55,10 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import pathlib
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +73,7 @@ def _package(name):
         from slamtpu.datasets.demo_gif import demo_camera, load_demo_frames
         from slamtpu.datasets.synthetic import make_scene
         from slamtpu.eval.ate import ate_rmse
+        from slamtpu.io.checkpoint import load_state, save_state
         from slamtpu.utils.profiling import TIMERS
 
         def manager(p, cam, right, saver):
@@ -70,6 +84,7 @@ def _package(name):
                                                      load_demo_frames)
         from slamtpu_torch.datasets.synthetic import make_scene
         from slamtpu_torch.eval.ate import ate_rmse
+        from slamtpu_torch.io.checkpoint import load_state, save_state
         from slamtpu_torch.utils.profiling import TIMERS
 
         def manager(p, cam, right, saver):
@@ -77,7 +92,8 @@ def _package(name):
                                device="cpu")
     return dict(Params=Params, ReplaySaver=ReplaySaver, manager=manager,
                 demo_camera=demo_camera, load_demo_frames=load_demo_frames,
-                make_scene=make_scene, ate_rmse=ate_rmse, TIMERS=TIMERS)
+                make_scene=make_scene, ate_rmse=ate_rmse, TIMERS=TIMERS,
+                save_state=save_state, load_state=load_state)
 
 
 # Params of the 30-frame stereo paths beside stereo=True.
@@ -215,10 +231,138 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
     return out
 
 
+def _city(k, n):
+    scene = k["make_scene"](n_frames=n, height=376, width=1241,
+                            n_points=6000, stereo=True, baseline=0.54,
+                            seed=7, layout="city")
+    return scene, np.stack([q[:3, 3] for q in scene.poses_wc])
+
+
+def _until(sm, done, what, timeout=600.0):
+    """Poll done() while the worker threads live; raise on a dead worker
+    or after `timeout` seconds."""
+    deadline = time.time() + timeout
+    while not done():
+        if not all(t.is_alive() for t in sm._threads):
+            raise RuntimeError(f"a worker thread died waiting for {what}")
+        if time.time() > deadline:
+            raise RuntimeError(f"threaded pipeline stalled: {what}")
+        time.sleep(0.002)
+
+
+def run_threaded(pkg_name: str) -> dict:
+    """bench.py's threaded run (`bench.py:184-197`) of the 60-frame scene."""
+    k = _package(pkg_name)
+    t0 = time.time()
+    scene, gt = _city(k, 60)
+    p = k["Params"](stereo=True, do_local_bundle_adjustment=True,
+                    map_filtering=True, sequential=False)
+    saver = k["ReplaySaver"]()
+    sm = k["manager"](p, scene.camera, scene.right_camera, saver)
+    resets = [0]
+    reset = sm.reset
+
+    def counted_reset():
+        resets[0] += 1
+        reset()
+
+    sm.reset = counted_reset
+    k["TIMERS"].reset()
+    warm = 15
+    for i in range(60):
+        if i < warm:
+            sm.add_stereo_image(*scene.frame(i), float(scene.timestamps[i]))
+            _until(sm, lambda: sm.get_queue_size() == 0, f"frame {i}")
+        else:
+            _until(sm, lambda: sm.get_queue_size() < 2, f"frame {i}")
+            sm.add_stereo_image(*scene.frame(i), float(scene.timestamps[i]))
+    _until(sm, lambda: not (sm.get_queue_size() or sm.mapper.keyframe_queue
+                            or sm.mapper.estimator.frame_queue), "the end")
+    sm.wait()
+    if any(t.is_alive() for t in sm._threads):
+        raise RuntimeError("a worker thread outlived wait()")
+    est = saver.trajectory_xyz().astype(np.float64)
+    summary = k["TIMERS"].summary()
+    out = dict(package=pkg_name, path="threaded", resets=resets[0],
+               keyframes=sm.map_manager.nb_keyframes,
+               keyframe_ids=sorted(f.id for f in
+                                   sm.map_manager.frames_map.values()),
+               points_3d=sum(1 for mp in sm.map_manager.map_points.values()
+                             if mp.is_3d),
+               poses=len(est), finite=bool(np.all(np.isfinite(est))),
+               ba_pending=sm.mapper.estimator._pending is not None,
+               worker_threads=len(sm._threads))
+    for stage in ("fe.pipe.dispatch", "es.ba", "es.ba_apply",
+                  "es.filter"):
+        out[stage] = summary.get(stage, {}).get("calls", 0)
+    if len(est) == len(gt):
+        out["ate_m"] = k["ate_rmse"](est, gt, align_scale=False)
+    out["seconds"] = round(time.time() - t0, 1)
+    return out
+
+
+def run_checkpoint(pkg_name: str) -> dict:
+    """20 frames, save, load into a fresh manager, frames 21-30, finish."""
+    k = _package(pkg_name)
+    t0 = time.time()
+    scene, gt = _city(k, 30)
+    saver = k["ReplaySaver"]()
+    sm = k["manager"](k["Params"](stereo=True), scene.camera,
+                      scene.right_camera, saver)
+    for i in range(20):
+        sm.add_stereo_image(*scene.frame(i), float(scene.timestamps[i]))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.pkl")
+        k["save_state"](sm, path)
+        saver2 = k["ReplaySaver"]()
+        sm2 = k["manager"](k["Params"](stereo=True), scene.camera,
+                           scene.right_camera, saver2)
+        k["load_state"](sm2, path)
+    saved = (sm.map_manager.nb_keyframes, len(sm.map_manager.map_points),
+             np.asarray(sm.current_frame.wc, np.float64))
+    loaded = (sm2.map_manager.nb_keyframes, len(sm2.map_manager.map_points),
+              np.asarray(sm2.current_frame.wc, np.float64))
+    resets = [0]
+    reset = sm2.reset
+
+    def counted_reset():
+        resets[0] += 1
+        reset()
+
+    sm2.reset = counted_reset
+    k["TIMERS"].reset()
+    for i in range(20, 30):
+        sm2.add_stereo_image(*scene.frame(i), float(scene.timestamps[i]))
+    sm2.finish()
+    summary = k["TIMERS"].summary()
+    # Frames 21-30 (ids) from the resumed run; the whole trajectory is the
+    # first run's positions with the resumed run's on top.
+    pos = {fid: saver.positions[j] for fid, j in saver.ids.items()}
+    pos.update({fid: saver2.positions[j] for fid, j in saver2.ids.items()})
+    traj = np.asarray([pos[f] for f in sorted(pos)], np.float64)[:, [0, 2, 1]]
+    err = np.linalg.norm(traj - gt[:len(traj)], axis=1)
+    out = dict(package=pkg_name, path="checkpoint", resets=resets[0],
+               saved_keyframes=saved[0], saved_map_points=saved[1],
+               loaded_keyframes=loaded[0], loaded_map_points=loaded[1],
+               loaded_pose_max_diff=float(np.abs(saved[2]
+                                                 - loaded[2]).max()),
+               keyframes=sm2.map_manager.nb_keyframes, poses=len(traj),
+               finite=bool(np.all(np.isfinite(traj))),
+               resumed_err_m=err[20:].tolist(),
+               resumed_max_err_m=float(err[20:].max()),
+               ate_m=k["ate_rmse"](traj, gt, align_scale=False)
+               if len(traj) == len(gt) else None)
+    for stage in ("fe.pipe.dispatch", "mp.kf_async.dispatch", "es.ba_apply"):
+        out["resumed_" + stage] = summary.get(stage, {}).get("calls", 0)
+    out["seconds"] = round(time.time() - t0, 1)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("package", choices=("jax", "torch"))
-    ap.add_argument("path", choices=("mono", "real", *STEREO_PATHS))
+    ap.add_argument("path", choices=("mono", "real", *STEREO_PATHS,
+                                     "threaded", "checkpoint"))
     ap.add_argument("--threads", type=int, default=4,
                     help="torch CPU threads (the port only)")
     ap.add_argument("--init-pose", type=json.loads, default=None,
@@ -230,10 +374,16 @@ def main():
         import torch
         torch.set_num_threads(args.threads)
         threads = torch.get_num_threads()
-    result = run(args.package, args.path, args.init_pose)
-    # The port's CPU results depend on torch's thread count (local BA's
-    # large contractions); the JAX package's run records null.
+    if args.path == "threaded":
+        result = run_threaded(args.package)
+    elif args.path == "checkpoint":
+        result = run_checkpoint(args.package)
+    else:
+        result = run(args.package, args.path, args.init_pose)
+    # torch's CPU thread count (the port only; null for the JAX package)
+    # and the cores the process may use.
     result["threads"] = threads
+    result["cpu_cores"] = len(os.sched_getaffinity(0))
     print("RESULT " + json.dumps(result), flush=True)
 
 

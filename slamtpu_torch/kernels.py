@@ -13,6 +13,9 @@ stream as `void*`, launches, and returns `cudaGetLastError()`; `check`
 raises on a nonzero code (a refused launch never runs and a later
 synchronize would not report it). `SOURCE_FLAGS` gives one source extra
 nvcc flags.
+
+`count_launch` keeps each wrapper's `launches` count exact when threaded
+mode launches one kernel from two threads at once.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -64,9 +68,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-@functools.lru_cache(maxsize=None)
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed."""
+    """The loaded kernel library, built first if its sources changed. One
+    build at a time: threaded mode's workers may ask for it together, and
+    the build's temporary files are named by the process."""
+    with _BUILD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     global build_seconds
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
@@ -118,6 +133,14 @@ def library() -> ctypes.CDLL:
 def _check_nvcc(code, output: str) -> None:
     if code != 0:
         raise RuntimeError(f"nvcc failed ({code}):\n{output}")
+
+
+def count_launch(fn) -> None:
+    """Add one to `fn.launches`. The attribute is a plain int that callers
+    read and reset; the lock makes the read-modify-write atomic across
+    threads."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def stream_ptr(device) -> int:

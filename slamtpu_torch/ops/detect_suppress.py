@@ -79,7 +79,7 @@ def suppress_and_nms_cuda(resp, yx, occ_valid, *, radius: int,
         kernels.stream_ptr(resp.device),
     )
     kernels.check(code, "slamtpu_suppress_nms")
-    suppress_and_nms.launches += 1
+    kernels.count_launch(suppress_and_nms)
     return out
 
 

@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from .smallalg import inv3x3, smallest_eigvec_psd, solve_psd
 
 # Degree-1 basis: [x, y, z, 1]; degree <= 3 basis: all (a, b, c) exponent
@@ -198,7 +199,7 @@ def five_point_candidates(pd1, pd2, *, grid: int = 64,
     R = grid - 1 root slots (at most 10 real roots exist; spare slots are
     invalid).
     """
-    five_point_candidates.launches += 1
+    kernels.count_launch(five_point_candidates)
     tab = _tables(pd1.device)
     m = pd1.shape[0]
     f32 = torch.float32

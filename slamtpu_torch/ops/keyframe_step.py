@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from .detect_suppress import suppress_and_nms
 from .features import subpixel_refine
 from .frontend_step import _undistort_backproject
@@ -239,7 +240,7 @@ def keyframe_step(pyr_left, right_image, state, *, levels: int, window: int,
     take rows n_old, n_old + 1, ... in row-major (cell, rank) order, the
     host's admission order. Returns (per_slot (cap, 12), n_new (0-d int
     tensor))."""
-    keyframe_step.launches += 1
+    kernels.count_launch(keyframe_step)
     cap = state.shape[0] - N_GROUPS - N_MISC_ROWS
     dev = state.device
     slots = state[:cap]
@@ -325,7 +326,7 @@ def keyframe_step_carry(carry, right_image, state, *, levels: int,
     """One keyframe on the carry (the JAX program's arguments and results;
     `state` is the (cap + N_GROUPS + KS2_MISC_ROWS, 16) f32 upload).
     Returns (new_carry, per_slot (cap, 13), n_new (0-d int tensor))."""
-    keyframe_step_carry.launches += 1
+    kernels.count_launch(keyframe_step_carry)
     f32 = torch.float32
     kp = carry["kp"]
     misc_c = carry["misc"]

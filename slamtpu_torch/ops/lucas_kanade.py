@@ -267,9 +267,9 @@ def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
         )
         kernels.check(code, "slamtpu_lk_level")
         if one_d:
-            lk_level_1d.launches += 1
+            kernels.count_launch(lk_level_1d)
         else:
-            lk_level.launches += 1
+            kernels.count_launch(lk_level)
     if return_counts:
         return flow_out, ok_out, sync[iters + 3:2 * iters + 4], \
             sync[2 * iters + 4]

@@ -62,7 +62,7 @@ def gather_windows_cuda(src, start, t1: int, t2: int):
         c, h, w, n, t1, t2, kernels.stream_ptr(src.device),
     )
     kernels.check(code, "slamtpu_window_gather")
-    gather_windows.launches += 1
+    kernels.count_launch(gather_windows)
     return out
 
 
