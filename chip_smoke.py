@@ -94,6 +94,24 @@ Phases, one line each; any failure raises and exits nonzero:
      restarted (pipelined dispatches after the resume), the level kernel,
      K2 and keyframe_step_carry launched after the resume, and the resumed
      frames' largest position error <= 2x the JAX CPU run's + 0.01 m.
+  16. seeds: the default path (phase 6's Params and feeding) on bench.py's
+     60-frame city scene from scene seeds 8, 9 and 11; each seed: 0 resets,
+     keyframes within 2 of the JAX package's CPU run and metric ATE <= 2x
+     its ATE + 0.01 m (JAX_SEEDS); the port's median ATE over seeds 7
+     (phase 6), 8, 9 and 11 <= 1.5x the JAX package's median; prints each
+     seed's KFs, ATE and FPS after 15 frames;
+  17. mesh: slamtpu_torch/parallel/multi.py on one NCCL rank (mesh (1, 1),
+     destroyed after the phase) at the default Params' widths:
+     multi_sequence_step and frontend_mesh_step on 4 sequences (frames 0-1
+     of the city scene from seeds 7, 8, 9, 11; N = 1024 scene points,
+     levels 3, window 9, 256 hypotheses), ba_mesh_step at P = 16, X = 2048,
+     O = 8192, and the mapper offload with the keyframe program on a second
+     stream; asserts the 2-D level kernel launched by both tracking steps,
+     K2 and keyframe_step_carry by the offload, offload parity bit-exact
+     with n_new > 0, tracked points and P3P inliers >= MESH_FLOORS, the GN
+     and PnP poses nearer frame 1's than the input, BA's cost below its
+     input cost and its pose error < 0.6x the perturbation; prints each
+     step's ms beside the card's name and power limit.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -785,6 +803,7 @@ def phase_default_path(dev):
     n_kf = sm.map_manager.nb_keyframes
     fps = (len(frames) - warm) / (t1 - t_warm)
     FPS["default"] = fps
+    SEEDS[7] = (n_kf, ate, fps, sm.n_resets)
     summary = TIMERS.summary()
 
     def calls(stage):
@@ -837,6 +856,93 @@ def phase_default_path(dev):
     ate_bound = 2.0 * JAX_DEFAULT_ATE_M + 0.01
     if not ate <= ate_bound:
         raise AssertionError(f"metric ATE {ate:.4f} m > {ate_bound:.4f} m")
+    return launches
+
+
+# The JAX package's CPU runs of phase 16's scenes: bench.py's 60-frame city
+# scene from scene seed S, Params(stereo=True), fed as phase 6 feeds it
+# (scripts/cpu_path_reference.py jax default60 --seed S; PERF.md): seed ->
+# (keyframes, metric ATE m). Seeds 8, 9 and 11 are phase 16's; 7 is phase
+# 6's scene, rerun with the others for the median (phase 6 keeps its own
+# JAX_DEFAULT_* for its bounds).
+JAX_SEEDS = {
+    7: (12, 0.031795),
+    8: (14, 0.320440),
+    9: (12, 0.052223),
+    11: (11, 0.011647),
+}
+# Phase 6's and 16's port runs: seed -> (keyframes, ATE m, FPS, resets).
+SEEDS = {}
+
+
+def phase_seed_paths(dev):
+    """Phase 16: the default path (Params(stereo=True)) on bench.py's
+    60-frame city scene from scene seeds 8, 9 and 11, fed as phase 6 feeds
+    seed 7. Each seed: 0 resets, keyframes within 2 of the JAX package's CPU
+    run, metric ATE <= 2x its ATE + 0.01 m; over seeds 7 (phase 6), 8, 9
+    and 11 the port's median ATE <= 1.5x the JAX package's. Prints each
+    seed's KFs, ATE and FPS after 15 frames."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.datasets.synthetic import make_scene
+    from slamtpu_torch.eval.ate import ate_rmse
+
+    _reset_counts()
+    warm = 15
+    for seed in (8, 9, 11):
+        scene = make_scene(n_frames=60, height=376, width=1241,
+                           n_points=6000, stereo=True, baseline=0.54,
+                           seed=seed, layout="city")
+        saver = ReplaySaver()
+        sm = SlamManager(Params(stereo=True), scene.camera,
+                         right_camera=scene.right_camera, slam_io=saver,
+                         device=dev)
+        t_warm = None
+        for i in range(len(scene)):
+            if i == warm:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            sm.add_stereo_image(*scene.frame(i), float(scene.timestamps[i]))
+        sm.finish()
+        torch.cuda.synchronize()
+        fps = (len(scene) - warm) / (time.perf_counter() - t_warm)
+        est = saver.trajectory_xyz().astype(np.float64)
+        gt = np.stack([q[:3, 3] for q in scene.poses_wc])
+        if est.shape != gt.shape or not np.all(np.isfinite(est)):
+            raise AssertionError(f"seed {seed}: trajectory {est.shape} not "
+                                 f"finite / not {gt.shape}")
+        ate = ate_rmse(est, gt, align_scale=False)
+        SEEDS[seed] = (sm.map_manager.nb_keyframes, ate, fps, sm.n_resets)
+        ref_kfs, ref_ate = JAX_SEEDS[seed]
+        _log("seeds", seed=seed, keyframes=SEEDS[seed][0],
+             jax_keyframes=ref_kfs, ate_m=f"{ate:.5f}",
+             jax_ate_m=f"{ref_ate:.5f}", fps_after_15=f"{fps:.3f}",
+             resets=sm.n_resets)
+    launches = _read_counts()
+
+    port = {s: SEEDS[s][1] for s in JAX_SEEDS}
+    med, ref_med = (float(np.median(list(v.values()))) for v in
+                    (port, {s: r[1] for s, r in JAX_SEEDS.items()}))
+    _log("seeds", median_ate_m=f"{med:.5f}", jax_median_ate_m=f"{ref_med:.5f}",
+         launches=json.dumps(launches, separators=(",", ":")))
+    for seed in (8, 9, 11):
+        n_kf, ate, _, resets = SEEDS[seed]
+        ref_kfs, ref_ate = JAX_SEEDS[seed]
+        if resets:
+            raise AssertionError(f"seed {seed}: {resets} reset(s)")
+        if abs(n_kf - ref_kfs) > 2:
+            raise AssertionError(f"seed {seed}: {n_kf} keyframes, expected "
+                                 f"{ref_kfs} +- 2")
+        if not ate <= 2.0 * ref_ate + 0.01:
+            raise AssertionError(f"seed {seed}: metric ATE {ate:.4f} m > "
+                                 f"{2.0 * ref_ate + 0.01:.4f} m")
+    if not med <= 1.5 * ref_med:
+        raise AssertionError(f"median ATE over seeds {sorted(port)} "
+                             f"{med:.4f} m > 1.5 x the JAX package's "
+                             f"{ref_med:.4f} m")
+    _check_path_kernels("seeds", launches)
     return launches
 
 
@@ -1522,6 +1628,192 @@ def phase_checkpoint_path(dev):
     return launches
 
 
+# Scene seeds of the mesh phase's four sequences (one a sequence).
+MESH_SEEDS = (7, 8, 9, 11)
+MESH_N = 1024
+
+
+def _mesh_sequences():
+    """The mesh phase's B = 4 sequences: frames 0 and 1 (left) of bench.py's
+    city scene from each of MESH_SEEDS, and N = 1024 of the scene's points
+    visible in frame 0 (the nearest point of each 8 x 8 px cell, so few are
+    occluded; a random 1024 of those), with their pixels, world positions
+    and the ground-truth pose of frame 1."""
+    import numpy as np
+
+    from slamtpu_torch import hostmath as hm
+    from slamtpu_torch.datasets.synthetic import make_scene
+
+    imgs, pts, pts3d, gt = [], [], [], []
+    for seed in MESH_SEEDS:
+        scene = make_scene(n_frames=60, height=376, width=1241,
+                           n_points=6000, stereo=True, baseline=0.54,
+                           seed=seed, layout="city")
+        cam = scene.camera
+        cw0 = hm.se3_inv(scene.poses_wc[0])
+        pc = scene.points @ cw0[:3, :3].T + cw0[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-9)
+        yx = np.stack([cam.fy * pc[:, 1] / z + cam.cy,
+                       cam.fx * pc[:, 0] / z + cam.cx], -1)
+        vis = np.flatnonzero((pc[:, 2] > 0.5) & (yx[:, 0] >= 12)
+                             & (yx[:, 0] <= cam.height - 13)
+                             & (yx[:, 1] >= 12) & (yx[:, 1] <= cam.width - 13))
+        vis = vis[np.argsort(pc[vis, 2], kind="stable")]
+        cell = (yx[vis, 0] // 8).astype(np.int64) * 1000 \
+            + (yx[vis, 1] // 8).astype(np.int64)
+        _, first = np.unique(cell, return_index=True)
+        near = vis[np.sort(first)]
+        if len(near) < MESH_N:
+            raise AssertionError(f"seed {seed}: {len(near)} unoccluded "
+                                 f"points in frame 0, need {MESH_N}")
+        pick = np.random.default_rng(seed).choice(near, MESH_N,
+                                                  replace=False)
+        imgs.append([scene.frame(i)[0] for i in (0, 1)])
+        pts.append(yx[pick].astype(np.float32))
+        pts3d.append(scene.points[pick].astype(np.float32))
+        gt.append(hm.pose_to_theta(hm.se3_inv(scene.poses_wc[1])))
+    imgs = np.asarray(imgs, np.float32)
+    intr = np.array([cam.fx, cam.fy, cam.cx, cam.cy], np.float32)
+    return (imgs[:, 0], imgs[:, 1], np.asarray(pts), np.asarray(pts3d),
+            intr, np.asarray(gt, np.float32))
+
+
+def phase_mesh(dev):
+    """Phase 17: slamtpu_torch/parallel/multi.py at the default Params'
+    widths (376x1241, N = 1024, levels 3, window 9, 256 hypotheses) on one
+    NCCL rank (mesh (1, 1)), destroyed after the phase: multi_sequence_step
+    and frontend_mesh_step on _mesh_sequences (B = 4), ba_mesh_step on
+    make_ba_inputs padded to P = 16, X = 2048, O = 8192 (6 free poses), and
+    dryrun_mapper_offload with the keyframe program on a second stream of
+    the card, at make_offload_inputs(376, 1241, cap=1024, n=60, levels=3,
+    window=9). Asserts the 2-D level kernel launched by both tracking
+    steps, K2 and keyframe_step_carry by the offload, offload parity
+    bit-exact with n_new > 0, tracked points and P3P inliers at or above
+    MESH_FLOORS, the GN and PnP poses nearer frame 1's than the input, BA's
+    final cost below its cost at the input and its pose error < 0.6x the
+    perturbation. Prints each step's ms (CUDA events, median of 3)."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch.ops.keyframe_step import keyframe_step_carry
+    from slamtpu_torch.ops.lucas_kanade import lk_level
+    from slamtpu_torch.parallel import launch, multi
+
+    img_prev, img_cur, pts, pts3d, intr, gt = _mesh_sequences()
+    B = len(MESH_SEEDS)
+    valid = np.ones((B, MESH_N), bool)
+    theta0 = np.zeros((B, 6), np.float32)       # frame 0 is the identity
+    und_xy = pts[..., ::-1].copy()
+    bear_xy = np.stack([(pts[..., 1] - intr[2]) / intr[0],
+                        (pts[..., 0] - intr[3]) / intr[1]], -1)
+    fe_args = (img_prev, img_cur, pts, valid, valid.copy(),
+               np.zeros_like(pts), pts3d, valid.copy(), und_xy,
+               bear_xy.astype(np.float32), valid.copy(),
+               np.tile(np.eye(3, dtype=np.float32), (B, 1, 1)), theta0,
+               intr, np.zeros(4, np.float32),
+               np.stack([np.zeros(B), np.arange(B)], -1).astype(np.uint32))
+    ba_args, ba_gt, _ = multi.make_ba_inputs(16, 2048, 8192, n_free=6)
+    off_inputs = multi.make_offload_inputs(376, 1241, cap=1024, n=60,
+                                           levels=3, window=9)
+    steps_ms = {}
+    _reset_counts()
+    keyframe_step_carry.launches = 0
+    with launch.one_rank(dev):
+        mesh = multi.make_mesh(1)
+        ms_step = multi.multi_sequence_step(mesh, levels=3, window=9)
+        fe_step = multi.frontend_mesh_step(mesh, levels=3, window=9,
+                                           essential_hypotheses=256,
+                                           pnp_hypotheses=256)
+        ba_step = multi.ba_mesh_step(mesh)
+        ms_args = (img_prev, img_cur, pts, pts3d, theta0, valid, intr)
+
+        before = lk_level.launches
+        ms_out = multi.to_host(ms_step(*ms_args))
+        ms_launches = lk_level.launches - before
+        before = lk_level.launches
+        fe_out = multi.to_host(fe_step(*fe_args))
+        fe_launches = lk_level.launches - before
+        ba_out = multi.to_host(ba_step(*ba_args))
+        ba_cost0 = float(multi.to_host(multi.ba_mesh_step(
+            mesh, iters1=0, iters2=0)(*ba_args))["final_cost"])
+        kf_before = keyframe_step_carry.launches
+        k2_before = _read_counts()["suppress_nms"]
+        offload = multi.dryrun_mapper_offload(
+            1, device=dev, second_stream=True, inputs=off_inputs,
+            hypotheses=256)
+        off_kf = keyframe_step_carry.launches - kf_before
+        off_k2 = _read_counts()["suppress_nms"] - k2_before
+        torch.cuda.synchronize()
+        launches = _read_counts()
+
+        # Timings after the counted run (launches there do not count).
+        for name, fn in (("multi_sequence_step", lambda: ms_step(*ms_args)),
+                         ("frontend_mesh_step", lambda: fe_step(*fe_args)),
+                         ("ba_mesh_step", lambda: ba_step(*ba_args))):
+            steps_ms[name] = _median_ms(fn, reps=3, warmup=1)
+
+    new_pts, ok, new_theta, cost = ms_out
+    new_px, fe_ok, _, _, pnp_theta, med_par, p3p_n = fe_out
+    err_in = np.abs(ba_args[0] - ba_gt).max()
+    err_ba = np.abs(ba_out["poses"] - ba_gt).max()
+    gn_err = np.abs(new_theta - gt).max(-1)
+    pnp_err = np.abs(pnp_theta - gt).max(-1)
+    start_err = np.abs(theta0 - gt).max(-1)
+    _log("mesh", mesh=json.dumps(multi.mesh_dict(mesh)),
+         seeds=",".join(map(str, MESH_SEEDS)),
+         tracked=ok.sum(-1).tolist(), gn_pose_err=np.round(gn_err, 5).tolist(),
+         start_pose_err=np.round(start_err, 5).tolist(),
+         fe_tracked=fe_ok.sum(-1).tolist(), p3p_inliers=p3p_n.tolist(),
+         pnp_pose_err=np.round(pnp_err, 5).tolist(),
+         median_parallax=np.round(med_par, 4).tolist())
+    _log("mesh", ba_cost0=f"{ba_cost0:.4f}",
+         ba_final_cost=f"{float(ba_out['final_cost']):.4f}",
+         ba_outliers=int(ba_out["outliers"].sum()),
+         ba_pose_err=f"{err_ba:.5f}", ba_input_err=f"{err_in:.5f}",
+         offload=json.dumps(offload), offload_k2=off_k2,
+         offload_keyframe_programs=off_kf,
+         level_launches_ms=ms_launches, level_launches_fe=fe_launches,
+         launches=json.dumps(launches, separators=(",", ":")))
+    _log("mesh", ms=json.dumps({k: round(v, 3) for k, v in
+                                 steps_ms.items()}), card=f"'{SMI}'")
+
+    floors = MESH_FLOORS
+    if ms_launches <= 0 or fe_launches <= 0:
+        raise AssertionError(f"mesh: the level kernel launched {ms_launches}"
+                             f" / {fe_launches} times by the tracking steps")
+    if off_k2 <= 0 or off_kf <= 0:
+        raise AssertionError(f"mesh: the offload launched K2 {off_k2} and "
+                             f"keyframe_step_carry {off_kf} times")
+    if offload["n_new"] <= 0:
+        raise AssertionError(f"mesh: the offload admitted nothing: {offload}")
+    if (ok.sum(-1) < floors["tracked"]).any() \
+            or (fe_ok.sum(-1) < floors["tracked"]).any():
+        raise AssertionError(f"mesh: tracked {ok.sum(-1)} / "
+                             f"{fe_ok.sum(-1)} < {floors['tracked']}")
+    if (p3p_n < floors["p3p_inliers"]).any():
+        raise AssertionError(f"mesh: P3P inliers {p3p_n} < "
+                             f"{floors['p3p_inliers']}")
+    if not ((gn_err < start_err).all() and (pnp_err < start_err).all()):
+        raise AssertionError(f"mesh: pose errors GN {gn_err}, PnP {pnp_err} "
+                             f"not below the input's {start_err}")
+    if not np.all(np.isfinite(cost)):
+        raise AssertionError(f"mesh: GN cost {cost}")
+    if not float(ba_out["final_cost"]) < ba_cost0:
+        raise AssertionError(f"mesh: BA cost {float(ba_out['final_cost'])} "
+                             f"not below {ba_cost0}")
+    if not err_ba < 0.6 * err_in:
+        raise AssertionError(f"mesh: BA pose error {err_ba:.5f} >= 0.6 x "
+                             f"{err_in:.5f}")
+    return launches
+
+
+# Floors of the mesh phase: tracked points a sequence (of 1024) in both
+# tracking steps, and P3P inliers a sequence.
+MESH_FLOORS = {"tracked": 900, "p3p_inliers": 700}
+# nvidia-smi's name and power limit, for the lines that print times.
+SMI = ""
+
+
 def main() -> int:
     import torch
 
@@ -1538,6 +1830,8 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    global SMI
+    SMI = smi
     _log("device", torch=f"'{name}'", count=torch.cuda.device_count(),
          torch_version=torch.__version__, cuda=torch.version.cuda)
     print(f"[device] nvidia-smi: {smi}", flush=True)
@@ -1554,6 +1848,7 @@ def main() -> int:
     lk_1d = phase_lk_level_1d(dev)
     paths = {"classic": phase_main_path(dev),
              "default": phase_default_path(dev),
+             "seeds": phase_seed_paths(dev),
              "mono": phase_mono_path(dev),
              "real_frames": phase_real_frames(dev),
              "variant": phase_variant_path(dev),
@@ -1562,7 +1857,8 @@ def main() -> int:
              "brief": phase_brief_path(dev),
              "reference": phase_reference_path(dev),
              "threaded": phase_threaded_path(dev),
-             "checkpoint": phase_checkpoint_path(dev)}
+             "checkpoint": phase_checkpoint_path(dev),
+             "mesh": phase_mesh(dev)}
     # Standalone K1's headline numbers are at the shape its path gives it
     # (subpixel refinement); phase 3's LK shapes stay beside them.
     lk_shapes = {k: k1[k] for k in ("ms", "device_ms", "plain_ms",

@@ -11,7 +11,7 @@ TorchFunctionMode that recomputes every torch call at 1 thread on the same
 inputs: each call whose output is not bit-equal (NaN equal to NaN) is
 reported with its shape and largest difference. Calls inside torch.func
 transforms (vmap, jacfwd) are not recomputed. The long sums that
-`ops/ba.py` takes in float64 on the CPU (`_cpu_f64`, `_schur_terms`) may
+`ops/ba.py` takes in float64 (`_f64`, `_schur_terms`) may
 still show here in their last float64 bits; the cast back to float32
 drops them unless a sum lies at a float32 rounding tie, and the first
 line shows whether the results part. One JSON line a result.

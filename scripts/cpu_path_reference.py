@@ -2,8 +2,9 @@
 and print its result as one JSON line (`RESULT {...}`).
 
     JAX_PLATFORMS=cpu python scripts/cpu_path_reference.py jax|torch \
-        mono|real|default|variant|nocarry|speculate|brief|reference|\
-        threaded|checkpoint [--threads N] [--init-pose JSON]
+        mono|real|default|default60|variant|nocarry|speculate|brief|\
+        reference|threaded|checkpoint [--threads N] [--seed S] \
+        [--init-pose JSON]
 
 mono: bench.py's 60-frame 376x1241 city scene (6000 points, seed 7), left
 images through `add_image` with `Params(stereo=False)` (bench.py's mono
@@ -21,6 +22,12 @@ phase 10), `speculate_keyframes=True` (phase 11), `do_local_matching=True`
 (BRIEF local-map matching, phase 12) and `fused_front_end=False,
 fused_stereo=False, do_local_matching=True` (the reference's own per-stage
 tracker and stereo matcher, phase 13); ATE is metric.
+default60: bench.py's 60-frame scene through `add_stereo_image` with
+`Params(stereo=True)`, then `finish()`, as `chip_smoke.py` phases 6 and 16
+feed it; ATE is metric.
+--seed S builds the city scene from scene seed S in place of 7 (every route
+but real); phase 16 holds the port to the JAX package's default60 runs on
+seeds 8, 9 and 11.
 threaded: bench.py's threaded mode (`chip_smoke.py` phase 14): the
 60-frame scene with `Params(stereo=True, do_local_bundle_adjustment=True,
 map_filtering=True, sequential=False)`, fed as bench.py feeds it (15 frames
@@ -139,7 +146,7 @@ def _hook_init_pose(fe, inject):
     return rec
 
 
-def run(pkg_name: str, path: str, init_pose=None) -> dict:
+def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
     k = _package(pkg_name)
     t0 = time.time()
     saver = k["ReplaySaver"]()
@@ -155,10 +162,10 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
         def feed(i):
             sm.add_image(frames[i], 0.1 * i)
     else:
-        n = 60 if path == "mono" else 30
+        n = 60 if path in ("mono", "default60") else 30
         scene = k["make_scene"](n_frames=n, height=376, width=1241,
                                 n_points=6000, stereo=True, baseline=0.54,
-                                seed=7, layout="city")
+                                seed=seed, layout="city")
         gt = np.stack([q[:3, 3] for q in scene.poses_wc])
         if path == "mono":
             p = k["Params"](stereo=False)
@@ -167,7 +174,7 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
             def feed(i):
                 sm.add_image(scene.frame(i)[0], float(scene.timestamps[i]))
         else:
-            p = k["Params"](stereo=True, **STEREO_PATHS[path])
+            p = k["Params"](stereo=True, **STEREO_PATHS.get(path, {}))
             sm = k["manager"](p, scene.camera, scene.right_camera, saver)
 
             def feed(i):
@@ -197,7 +204,7 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
     sm.finish()
     est = saver.trajectory_xyz().astype(np.float64)
     out = dict(
-        package=pkg_name, path=path, resets=resets[0],
+        package=pkg_name, path=path, seed=seed, resets=resets[0],
         initialized=bool(p.vision_initialized), initialized_at_frame=init_at,
         keyframes=sm.map_manager.nb_keyframes,
         points_3d=sum(1 for mp in sm.map_manager.map_points.values()
@@ -231,10 +238,10 @@ def run(pkg_name: str, path: str, init_pose=None) -> dict:
     return out
 
 
-def _city(k, n):
+def _city(k, n, seed):
     scene = k["make_scene"](n_frames=n, height=376, width=1241,
                             n_points=6000, stereo=True, baseline=0.54,
-                            seed=7, layout="city")
+                            seed=seed, layout="city")
     return scene, np.stack([q[:3, 3] for q in scene.poses_wc])
 
 
@@ -250,11 +257,11 @@ def _until(sm, done, what, timeout=600.0):
         time.sleep(0.002)
 
 
-def run_threaded(pkg_name: str) -> dict:
+def run_threaded(pkg_name: str, seed: int = 7) -> dict:
     """bench.py's threaded run (`bench.py:184-197`) of the 60-frame scene."""
     k = _package(pkg_name)
     t0 = time.time()
-    scene, gt = _city(k, 60)
+    scene, gt = _city(k, 60, seed)
     p = k["Params"](stereo=True, do_local_bundle_adjustment=True,
                     map_filtering=True, sequential=False)
     saver = k["ReplaySaver"]()
@@ -301,11 +308,11 @@ def run_threaded(pkg_name: str) -> dict:
     return out
 
 
-def run_checkpoint(pkg_name: str) -> dict:
+def run_checkpoint(pkg_name: str, seed: int = 7) -> dict:
     """20 frames, save, load into a fresh manager, frames 21-30, finish."""
     k = _package(pkg_name)
     t0 = time.time()
-    scene, gt = _city(k, 30)
+    scene, gt = _city(k, 30, seed)
     saver = k["ReplaySaver"]()
     sm = k["manager"](k["Params"](stereo=True), scene.camera,
                       scene.right_camera, saver)
@@ -362,12 +369,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("package", choices=("jax", "torch"))
     ap.add_argument("path", choices=("mono", "real", *STEREO_PATHS,
-                                     "threaded", "checkpoint"))
+                                     "default60", "threaded", "checkpoint"))
     ap.add_argument("--threads", type=int, default=4,
                     help="torch CPU threads (the port only)")
     ap.add_argument("--init-pose", type=json.loads, default=None,
                     help="JSON 4x4 camera-from-world pose to initialize "
                          "from in place of the five-point solve's")
+    ap.add_argument("--seed", type=int, default=7,
+                    help="scene seed of the city scene")
     args = ap.parse_args()
     threads = None
     if args.package == "torch":
@@ -375,11 +384,11 @@ def main():
         torch.set_num_threads(args.threads)
         threads = torch.get_num_threads()
     if args.path == "threaded":
-        result = run_threaded(args.package)
+        result = run_threaded(args.package, args.seed)
     elif args.path == "checkpoint":
-        result = run_checkpoint(args.package)
+        result = run_checkpoint(args.package, args.seed)
     else:
-        result = run(args.package, args.path, args.init_pose)
+        result = run(args.package, args.path, args.init_pose, args.seed)
     # torch's CPU thread count (the port only; null for the JAX package)
     # and the cores the process may use.
     result["threads"] = threads

@@ -36,19 +36,24 @@ from .smallalg import inv3x3, solve_psd
 FREE_CAP = 8
 
 
-def _cpu_f64(fn, *args):
-    """fn(*args); on the CPU computed in float64 and cast back to float32.
+def _f64(fn, *args):
+    """fn(*args) computed in float64 and cast back to float32, on every
+    device.
 
-    CPU GEMM splits a long reduction by thread, so a float32 sum over the
-    observations or points ends in bits that follow torch's thread count.
-    In float64 every product of two float32 values is exact, and sums taken
-    in another order differ only in low float64 bits, which the cast back
-    to float32 drops unless the sum lies at a float32 rounding tie (rare).
-    So the CPU result is the same at any thread count but for such ties.
-    On the card fn runs as it is, in float32.
+    The long sums of the LM step (over the observations and over the
+    points) feed a reduced camera system that is near-singular along the
+    gauge that projection-only observations leave weak (scale, with the two
+    oldest poses fixed and a short baseline between them). Summed in
+    float32, their rounding moves the solution along that direction: with
+    float32 sums on the card the default path on the city scene from seed
+    11 took 14 keyframes at 0.0795 m against 11-12 at ~0.01 m for the JAX
+    package, the port's CPU run and the card with float64 sums
+    (chip_smoke.py phase 16, PERF.md section 6). In float64
+    every product of two float32 values is exact, and sums taken in
+    another order differ only in low float64 bits, which the cast back
+    drops unless the sum lies at a float32 rounding tie (rare): so the
+    result also follows neither torch's CPU thread count nor the device.
     """
-    if args[0].device.type != "cpu":
-        return fn(*args)
     return fn(*(a.double() for a in args)).float()
 
 
@@ -56,22 +61,16 @@ def _schur_terms(B, V_inv, g_x):
     """The point blocks' shares of the reduced camera system,
     sum_x B_x V_x^-1 B_x^T and sum_x B_x V_x^-1 g_x.
 
-    On the CPU both come from one float32 product B_x V_x^-1 a point (a
-    3-term sum, the same at any thread count), summed over the points in
-    float64 as _cpu_f64 does; on the card, the two float32 einsums. XLA
-    orders the first term so too (B_x V_x^-1 first) but takes V_x^-1 g_x
-    first in the second; no order is more exact than another, and which
-    one the CPU takes moves the route parity tests' poses by cm (PERF.md
-    section 6).
+    Both come from one float32 product B_x V_x^-1 a point (a 3-term sum,
+    the same in any order), summed over the points in float64 as _f64
+    does. XLA orders the first term so too (B_x V_x^-1 first) but takes
+    V_x^-1 g_x first in the second; no order is more exact than another,
+    and which one is taken moves the route parity tests' poses by cm
+    (PERF.md section 6).
     """
-    if B.device.type != "cpu":
-        return (torch.einsum("xab,xbc,xdc->ad", B, V_inv, B),
-                torch.einsum("xab,xbc,xc->a", B, V_inv, g_x))
     BV = torch.einsum("xab,xbc->xac", B, V_inv)
-    return (_cpu_f64(lambda bv, b: torch.einsum("xac,xdc->ad", bv, b),
-                     BV, B),
-            _cpu_f64(lambda bv, g: torch.einsum("xac,xc->a", bv, g),
-                     BV, g_x))
+    return (_f64(lambda bv, b: torch.einsum("xac,xdc->ad", bv, b), BV, B),
+            _f64(lambda bv, g: torch.einsum("xac,xc->a", bv, g), BV, g_x))
 
 
 def _residual_one(pose_theta, point, px_yx, intrinsics):
@@ -104,10 +103,12 @@ def _jacobians(p_th, x, obs_px, intrinsics):
     return Jp, Jx
 
 
-def _cost(poses, points, obs_pose, obs_point, obs_px, weights, intrinsics):
+def _cost(poses, points, obs_pose, obs_point, obs_px, weights, intrinsics,
+          reduce=None):
     r, _ = _residuals(poses[obs_pose], points[obs_point], obs_px, intrinsics)
     r = r * weights[:, None]
-    return torch.sum(r * r)
+    cost = torch.sum(r * r)
+    return cost if reduce is None else reduce(cost)
 
 
 def _bucket_observations(obs_point, obs_valid, X: int, K: int):
@@ -133,8 +134,14 @@ def _bucket_observations(obs_point, obs_valid, X: int, K: int):
 
 
 def _lm_rounds(poses, points, pose_free_mask, obs_pose, obs_point, obs_px,
-               weights, intrinsics, iters, bucket):
-    """Damped Schur-complement LM; returns updated (poses, points, cost)."""
+               weights, intrinsics, iters, bucket, reduce=None):
+    """Damped Schur-complement LM; returns updated (poses, points, cost).
+
+    With `reduce` (a sum over the ranks that hold the other observations),
+    every sum over observations is this rank's partial, reduced: U, g_p,
+    the per-point V, B and g_x, and the cost.
+    """
+    red = (lambda t: t) if reduce is None else reduce
     P = poses.shape[0]
     X = points.shape[0]
     n6 = 6 * P
@@ -156,7 +163,7 @@ def _lm_rounds(poses, points, pose_free_mask, obs_pose, obs_point, obs_px,
     w = weights[:, None]
 
     cost = _cost(poses, points, obs_pose, obs_point, obs_px, weights,
-                 intrinsics)
+                 intrinsics, reduce)
     lam = torch.full((), 1e-3, dtype=f32, device=dev)
     for _ in range(iters):
         p_th = poses[obs_pose]
@@ -170,18 +177,18 @@ def _lm_rounds(poses, points, pose_free_mask, obs_pose, obs_point, obs_px,
         Jp = Jp * free_p[obs_pose][:, None, None]
 
         JpJp = torch.einsum("oia,oib->oab", Jp, Jp).reshape(-1, 36)
-        U = _cpu_f64(lambda o, v: o.T @ v, pose_onehot, JpJp).reshape(
+        U = red(_f64(lambda o, v: o.T @ v, pose_onehot, JpJp)).reshape(
             P, 6, 6)
         JxJx = torch.einsum("oia,oib->oab", Jx, Jx)       # (O, 3, 3)
-        V = torch.sum(JxJx[table] * slot_w[..., None, None], dim=1)
+        V = red(torch.sum(JxJx[table] * slot_w[..., None, None], dim=1))
         A = torch.einsum("oia,oib->oab", Jp, Jx)          # (O, 6, 3)
-        B = torch.einsum("xkp,xkab->xpab", slot_pose, A[table]).reshape(
+        B = red(torch.einsum("xkp,xkab->xpab", slot_pose, A[table])).reshape(
             X, n6, 3)
 
-        g_p = _cpu_f64(lambda o, v: o.T @ v, pose_onehot,
-                       torch.einsum("oia,oi->oa", Jp, r)).reshape(n6)
+        g_p = red(_f64(lambda o, v: o.T @ v, pose_onehot,
+                           torch.einsum("oia,oi->oa", Jp, r))).reshape(n6)
         Jxr = torch.einsum("oia,oi->oa", Jx, r)           # (O, 3)
-        g_x = torch.sum(Jxr[table] * slot_w[..., None], dim=1)  # (X, 3)
+        g_x = red(torch.sum(Jxr[table] * slot_w[..., None], dim=1))  # (X, 3)
 
         # Damping.
         U_d = U + lam * U * eyeP + 1e-8 * eyeP
@@ -209,7 +216,7 @@ def _lm_rounds(poses, points, pose_free_mask, obs_pose, obs_point, obs_px,
         cand_poses = poses + dp.reshape(P, 6) * free_p[:, None]
         cand_points = points + dx
         new_cost = _cost(cand_poses, cand_points, obs_pose, obs_point,
-                         obs_px, weights, intrinsics)
+                         obs_px, weights, intrinsics, reduce)
         accept = new_cost < cost
         poses = torch.where(accept, cand_poses, poses)
         points = torch.where(accept, cand_points, points)
@@ -259,7 +266,7 @@ def local_bundle_adjustment(poses0, pose_const, points0, obs_pose, obs_point,
                             obs_px, obs_valid, intrinsics, *,
                             iters1: int = 5, iters2: int = 10,
                             repr_eps: float = 5.0, depth_eps: float = 1e-6,
-                            gross_eps: float = 1e4):
+                            gross_eps: float = 1e4, reduce=None):
     """Two-phase local BA (reference bundle_adjustment.jl:1-55).
 
     poses0: (P, 6) Euler-ZYX cw pose parameters; pose_const: (P,) bool;
@@ -270,6 +277,11 @@ def local_bundle_adjustment(poses0, pose_const, points0, obs_pose, obs_point,
     Observations whose INITIAL squared error exceeds `gross_eps` (or whose
     depth is below `depth_eps`) are excluded before phase 1 and reported as
     outliers.
+
+    `reduce`: None for the whole problem on one device. Sharded
+    (parallel/multi.py::ba_mesh_step), the obs_* lists are this rank's
+    shard and `reduce(t)` sums t over the ranks; poses, points, damping,
+    solve and accept stay replicated, and `outliers` covers the shard.
     """
     obs_pose = obs_pose.long()
     obs_point = obs_point.long()
@@ -290,7 +302,7 @@ def local_bundle_adjustment(poses0, pose_const, points0, obs_pose, obs_point,
 
     poses1, points1, _ = _lm_rounds(
         poses0, points0, free, obs_pose, obs_point, obs_px, w1, intrinsics,
-        iters1, bucket,
+        iters1, bucket, reduce,
     )
 
     # Outlier detection at the phase-1 minimizer.
@@ -302,7 +314,7 @@ def local_bundle_adjustment(poses0, pose_const, points0, obs_pose, obs_point,
     w2 = w1 * (~outliers).to(torch.float32)
     poses2, points2, cost = _lm_rounds(
         poses1, points1, free, obs_pose, obs_point, obs_px, w2, intrinsics,
-        iters2, bucket,
+        iters2, bucket, reduce,
     )
     return {
         "poses": poses2,

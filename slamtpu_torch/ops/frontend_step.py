@@ -93,9 +93,8 @@ def frontend_step(pyr_prev, pyr_cur, px, valid, is3d_prior, disp_prior,
                   min_active: int = 0):
     """One tracked frame (same arguments and result dict as the JAX
     `frontend_step`, tensors in place of arrays; `key` is a raw threefry
-    key pair)."""
-    N = px.shape[0]
-
+    key pair): the LK stage (step 1), then `frontend_geometry` on its
+    outputs (steps 2-6)."""
     # 1. KLT: both families in one level cascade + compacted retry.
     new_px, ok, tracked_with_prior = fb_cascade(
         pyr_prev, pyr_cur, px, is3d_prior, disp_prior, valid,
@@ -103,6 +102,24 @@ def frontend_step(pyr_prev, pyr_cur, px, valid, is3d_prior, disp_prior,
         eig_thresh=eig_thresh, pad=pad, max_distance=max_fb_distance,
         min_active=min_active,
     )
+    return frontend_geometry(
+        new_px, ok, tracked_with_prior, mp_pos, has_mp, join_idx,
+        join_valid, prev_und_xy, prev_bearing_xy, R_comp, theta_predicted,
+        intrinsics, dist, key, essential_hypotheses=essential_hypotheses,
+        pnp_hypotheses=pnp_hypotheses, threshold=threshold,
+        min_parallax_5pt=min_parallax_5pt,
+    )
+
+
+def frontend_geometry(new_px, ok, tracked_with_prior, mp_pos, has_mp,
+                      join_idx, join_valid, prev_und_xy, prev_bearing_xy,
+                      R_comp, theta_predicted, intrinsics, dist, key, *,
+                      essential_hypotheses: int = 256,
+                      pnp_hypotheses: int = 256, threshold: float = 3.0,
+                      min_parallax_5pt: float = 5.0):
+    """Steps 2-6 of `frontend_step` on the LK stage's outputs (new_px, ok,
+    tracked_with_prior) over the whole keypoint set; returns its dict."""
+    N = new_px.shape[0]
 
     # 2. Undistort / backproject.
     und_px, bearings = _undistort_backproject(new_px, intrinsics, dist)
@@ -128,7 +145,7 @@ def frontend_step(pyr_prev, pyr_cur, px, valid, is3d_prior, disp_prior,
     ess_gate = (n_par >= 8) & (mean_parallax >= min_parallax_5pt) \
         & (ess["n_inliers"] >= 5)
     ess_outlier_m = ess_gate & j_ok & ~ess_inliers
-    ess_outlier = torch.zeros(N, dtype=torch.int32, device=px.device) \
+    ess_outlier = torch.zeros(N, dtype=torch.int32, device=new_px.device) \
         .scatter_reduce(0, join_idx, (ess_outlier_m & join_valid).to(
             torch.int32), reduce="amax").to(torch.bool)
 

@@ -5,8 +5,10 @@ run: `pinv2x2_sym`, the default level solver `_lk_level_patch_lanes`
 (patch-cached: the first image's 6-map window and the second image's
 (T+1+2R)^2 patch are gathered ONCE per level), the disparity-only level
 `_lk_level_lanes_1d` of rectified stereo (`Params.stereo_klt_1d`), `lk_flow`,
-and the compacted failed-prior retry cascade `fb_retry_compact` (=
-`fb_cascade` = `fb_track_merged`, the names the JAX package's callers use).
+the forward-backward `fb_track` of the multi-device step
+(parallel/multi.py), and the compacted failed-prior retry cascade
+`fb_retry_compact` (= `fb_cascade` = `fb_track_merged`, the names the JAX
+package's callers use).
 
 The level solvers are `lk_level` (2-D) and `lk_level_1d`: a CPU tensor
 takes the plain version `lk_level_plain` / `lk_level_1d_plain` (tensor ops,
@@ -457,10 +459,32 @@ def lk_flow(pyr1, pyr2, points, displacement, valid, *, levels, window,
     return flow, ok
 
 
+def fb_track(pyr_prev, pyr_cur, points, displacement, valid, *, levels,
+             window, iters=30, eps=1e-2, eig_thresh=1e-4, pad=11,
+             max_distance=1.0, min_active=0):
+    """Forward-backward KLT (reference src/tracker.jl:17-68).
+
+    Forward over `levels` pyramid levels with the displacement prior, then
+    backward at level 0 only (tracker.jl:34), keeping points whose round trip
+    lands within `max_distance` of the original.
+
+    Returns (new_points (N, 2), status (N,)).
+    """
+    kw = dict(window=window, iters=iters, eps=eps, eig_thresh=eig_thresh,
+              pad=pad, min_active=min_active)
+    flow_f, status = lk_flow(pyr_prev, pyr_cur, points, displacement, valid,
+                             levels=levels, **kw)
+    new_points = points + flow_f
+    flow_b, bstatus = lk_flow(pyr_cur, pyr_prev, new_points, -flow_f, status,
+                              levels=0, escape_fail=True, **kw)
+    dist = _norm2(points - (new_points + flow_b))
+    return new_points, status & bstatus & (dist < max_distance)
+
+
 def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
                      *, levels, prior_level=1, window=9, iters=30, eps=1e-2,
                      eig_thresh=1e-4, pad=17, max_distance=1.0,
-                     min_active=0, one_d=False):
+                     min_active=0, one_d=False, retry_base=None):
     """Forward-backward KLT for both tracking families + compacted retry.
 
     Plain points enter at the coarsest level; prior points are injected at
@@ -469,6 +493,11 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
     plain points in a RETRY_CAP-lane second cascade (map_manager.jl:
     534-537); overflowing points simply fail. one_d runs every level,
     backward pass included, as the disparity-only level (rectified stereo).
+
+    `retry_base`: for one shard of a larger keypoint set, a function from
+    the shard's count of failed priors to the count in the shards before
+    it, so that the lanes go to the first RETRY_CAP failed priors of the
+    whole set (parallel/multi.py); None for a whole set.
 
     Returns (new_px, ok, tracked_with_prior).
     """
@@ -511,6 +540,8 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
     # scatters into the dump row RETRY_CAP, which is dropped.
     retry_mask = prior & ~okfb_m
     rank = torch.cumsum(retry_mask.to(torch.int64), 0) - retry_mask.long()
+    if retry_base is not None:
+        rank = rank + retry_base(retry_mask.sum())
     in_cap = retry_mask & (rank < RETRY_CAP)
     slot = torch.where(in_cap, rank, torch.full_like(rank, RETRY_CAP))
     px_r = torch.zeros((RETRY_CAP + 1, 2), dtype=px.dtype, device=px.device)

@@ -381,6 +381,28 @@ def _assert_level_agrees(out, ref, ok_in):
                                   flow_p.cpu().numpy()[~alive])
 
 
+@pytest.mark.parametrize("n", [1024, 256])
+def test_fb_track_matches_plain(n, monkeypatch):
+    """fb_track (parallel/multi.py's tracker: 3 + 1 levels forward, level 0
+    backward) launching the level kernel against fb_track through
+    lk_level_plain on the same card tensors, with the level tolerances."""
+    pyr1, pyr2 = _pyramid_pair()
+    rng = np.random.default_rng(n)
+    px = torch.from_numpy(np.stack([rng.uniform(0, 375, n),
+                                    rng.uniform(0, 1240, n)],
+                                   -1).astype(np.float32)).cuda()
+    valid = torch.from_numpy(rng.uniform(size=n) < 0.9).cuda()
+    kw = dict(levels=3, window=9, pad=PAD, max_distance=1.0)
+    before = lk.lk_level.launches
+    out = lk.fb_track(pyr1, pyr2, px, torch.zeros_like(px), valid, **kw)
+    torch.cuda.synchronize()
+    assert lk.lk_level.launches == before + 5   # 4 forward, 1 backward
+    monkeypatch.setattr(lk, "lk_level", lk.lk_level_plain)
+    ref = lk.fb_track(pyr1, pyr2, px, torch.zeros_like(px), valid, **kw)
+    _assert_level_agrees(out, ref, valid)
+    assert out[1].sum() > 0.5 * n
+
+
 @pytest.mark.parametrize("level", [0, 3])
 @pytest.mark.parametrize("n", [1024, 256])
 @pytest.mark.parametrize("min_active,escape_fail", [(0, False), (16, False),
@@ -741,3 +763,47 @@ def test_carry_adopt_kf_issues_no_host_sync():
     np.testing.assert_array_equal(kp[~new], kp_ref[~new])
     np.testing.assert_array_equal(out["misc"].cpu().numpy(),
                                   ref["misc"].numpy())
+
+
+def test_offload_second_stream_waits_for_the_tracking_stream(monkeypatch):
+    """parallel/multi.py's mapper offload on one card: the keyframe program
+    on a second stream reads the carry that track_step writes on the
+    default stream. Here every carry tensor track_step returns is filled
+    with a poison value, then the default stream sleeps ~0.1 s
+    (torch.cuda._sleep), then the carry is copied in: a keyframe stream
+    that does not wait for the default stream reads the poison. The
+    offload must stay bit-equal to the one-stream run (asserted inside
+    dryrun_mapper_offload) and admit new points, as in phase 17."""
+    from slamtpu_torch.parallel import multi
+
+    track_step = ts.track_step
+
+    def poison(t):
+        if t.dtype == torch.bool:
+            return torch.ones_like(t)
+        return torch.full_like(t, float("nan") if t.is_floating_point()
+                               else -12345)
+
+    def late(tree, fill):
+        if torch.is_tensor(tree):
+            return fill(tree)
+        if isinstance(tree, dict):
+            return {k: late(v, fill) for k, v in tree.items()}
+        return type(tree)(late(v, fill) for v in tree)
+
+    def late_track_step(*args, **kw):
+        c1, per_kp, extra = track_step(*args, **kw)
+        out = late(c1, poison)
+        torch.cuda._sleep(200_000_000)
+        flat_out, flat_c1 = multi._tensors(out), multi._tensors(c1)
+        for o, c in zip(flat_out, flat_c1):
+            o.copy_(c)
+        return out, per_kp, extra
+
+    inputs = multi.make_offload_inputs(376, 1241, cap=1024, n=60, levels=3,
+                                       window=9)
+    monkeypatch.setattr(ts, "track_step", late_track_step)
+    info = multi.dryrun_mapper_offload(1, device="cuda", second_stream=True,
+                                       inputs=inputs, hypotheses=256)
+    assert info["kf_device"] != info["track_device"]
+    assert info["n_new"] > 0

@@ -48,7 +48,8 @@ for name in ("slamtpu_torch.ops.ba", "slamtpu_torch.ops.track_step",
              "slamtpu_torch.ops.keyframe_step", "slamtpu_torch.ops.fivepoint",
              "slamtpu_torch.datasets.demo_gif", "slamtpu_torch.datasets.kitti",
              "slamtpu_torch.io.checkpoint", "slamtpu_torch.io.visualizer",
-             "slamtpu_torch.io.live_visualizer"):
+             "slamtpu_torch.io.live_visualizer",
+             "slamtpu_torch.parallel.multi", "slamtpu_torch.parallel.launch"):
     assert name in names, name
 print(len(names))
 """
