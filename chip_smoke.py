@@ -16,7 +16,11 @@ Phases, one line each; any failure raises and exits nonzero:
      level-0 and level-3 shapes, N = 1024: ok masks agree on >= 99.5% of
      the points alive at entry, flows of points ok in both within 1e-3 px;
      prints the iterations the level ran (K), its point-iterations and the
-     device time beside the earlier barrier design's;
+     device time beside the earlier barrier design's. Then the batch axis
+     at the same shapes: one launch over B = 4 frame pairs bit-exact (flows,
+     ok, stop-rule counts, K) against 4 single launches and each sequence
+     against the batched plain version to the same agreement; its times
+     and bound at B = 4 and 32;
   5. the classic path: a 30-frame 376x1241 synthetic stereo city scene
      through slamtpu_torch.SlamManager(device="cuda") with
      Params(stereo=True, pipelined=False, do_local_bundle_adjustment=False);
@@ -102,16 +106,21 @@ Phases, one line each; any failure raises and exits nonzero:
      seed's KFs, ATE and FPS after 15 frames;
   17. mesh: slamtpu_torch/parallel/multi.py on one NCCL rank (mesh (1, 1),
      destroyed after the phase) at the default Params' widths:
-     multi_sequence_step and frontend_mesh_step on 4 sequences (frames 0-1
-     of the city scene from seeds 7, 8, 9, 11; N = 1024 scene points,
-     levels 3, window 9, 256 hypotheses), ba_mesh_step at P = 16, X = 2048,
-     O = 8192, and the mapper offload with the keyframe program on a second
-     stream; asserts the 2-D level kernel launched by both tracking steps,
-     K2 and keyframe_step_carry by the offload, offload parity bit-exact
-     with n_new > 0, tracked points and P3P inliers >= MESH_FLOORS, the GN
-     and PnP poses nearer frame 1's than the input, BA's cost below its
-     input cost and its pose error < 0.6x the perturbation; prints each
-     step's ms beside the card's name and power limit.
+     multi_sequence_step and frontend_mesh_step, each one batched program,
+     on 4 sequences (frames 0-1 of the city scene from seeds 7, 8, 9, 11;
+     N = 1024 scene points, levels 3, window 9, 256 hypotheses), on those
+     repeated 8 times (B = 32, key (0, b)) and on six of them alone,
+     ba_mesh_step at P = 16, X = 2048, O = 8192, and the mapper offload
+     with the keyframe program on a second stream; asserts the 2-D level
+     kernel's launches a step equal at B = 1, 4 and 32, K2 and
+     keyframe_step_carry launched by the offload, offload parity bit-exact
+     with n_new > 0, tracked points and P3P inliers >= MESH_FLOORS for every
+     sequence, the GN and PnP poses nearer frame 1's than the input, the
+     six sequences equal to their runs alone (tests/test_parallel.py's
+     bounds), BA's cost below its input cost and its pose error < 0.6x the
+     perturbation; prints each step's ms and sequences a second at both
+     sizes and the level kernel's device ms a launch in each, beside the
+     card's name and power limit.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -406,10 +415,49 @@ BARRIER_DEVICE_MS = {("2-D", 0): 0.0745, ("2-D", 3): 0.0622,
                        ("1-D", 0): 0.0609, ("1-D", 3): 0.0582}
 
 
+def _level_work(p_lvl, flow, ok, counts, its, hw, hwp, pad, window):
+    """(bytes, float32 operations, point-iterations, live points) that one
+    sequence's level solve needs with this run's data: the distinct pixels
+    under the stack windows and patches of the points alive at entry
+    (starts clamped as the kernel clamps them), the point inputs and
+    outputs, and the solver's point-iterations the kernel counted (the K
+    iterations the function runs and the points running in each, not the
+    iterations warps run past K)."""
+    import torch
+
+    from slamtpu_torch.ops import lucas_kanade as lk
+
+    T = 2 * window + 1
+    P = T + 1 + 2 * lk.LK_PATCH_MARGIN
+    n = p_lvl.shape[0]
+    point_iters = int(counts.cpu().numpy()[:int(its)].sum())
+    n_live = int(ok.sum())
+    hp, wp = hwp
+    h, w = hw
+    win0 = torch.stack([
+        torch.clamp(p_lvl[ok, 0] - window + pad, 0, hp - T),
+        torch.clamp(p_lvl[ok, 1] - window + pad, 0, wp - T),
+    ], dim=-1)
+    p_f = p_lvl[ok].to(torch.float32)
+    q0 = p_f + flow[ok]
+    inb = ((q0[:, 0] >= 0) & (q0[:, 0] <= h - 1) & (q0[:, 1] >= 0)
+           & (q0[:, 1] <= w - 1))
+    q0_safe = torch.where(inb[:, None], q0, p_f)
+    base = (torch.floor(q0_safe).to(torch.int32) - window
+            - lk.LK_PATCH_MARGIN + pad)
+    patch0 = torch.stack([torch.clamp(base[:, 0], 0, hp - P),
+                          torch.clamp(base[:, 1], 0, wp - P)], dim=-1)
+    nbytes = (4 * 6 * _covered_pixels((hp, wp), win0, T)
+              + 4 * _covered_pixels((hp, wp), patch0, P)
+              + n * (8 + 8 + 1) + n * (8 + 1))
+    flops = 13 * T * T * point_iters + 7 * T * T * n_live
+    return nbytes, flops, point_iters, n_live
+
+
 def phase_lk_level(dev):
     """The LK level kernel at the main path's level-0 and level-3 shapes
     (window 9, 30 iterations, lk_min_active 16, N = 1024) on a real pyramid
-    pair."""
+    pair; then its batch axis (_lk_level_batched)."""
     import numpy as np
     import torch
 
@@ -426,8 +474,6 @@ def phase_lk_level(dev):
         torch.from_numpy(scene.frame(i)[0].astype(np.float32)).to(dev),
         levels=p.pyramid_levels, pad=pad) for i in range(2)]
     n = p.keypoint_capacity
-    T = 2 * p.window_size + 1
-    P = T + 1 + 2 * lk.LK_PATCH_MARGIN
     rows = []
     for level in (0, p.pyramid_levels):
         rng = np.random.default_rng(10 + level)
@@ -456,33 +502,10 @@ def phase_lk_level(dev):
             raise AssertionError(f"LK level kernel differs from its plain "
                                  f"version at level {level}: ok agreement "
                                  f"{agree:.4f}, flow error {err:.2e} px")
-        # Work this run's data needs: the distinct pixels under the stack
-        # windows and patches of the points alive at entry (starts clamped
-        # as the kernel clamps them), and the solver's point-iterations the
-        # kernel counted: the K iterations the function runs and the points
-        # running in each, not the iterations warps run past K.
+        nbytes, flops, point_iters, n_live = _level_work(
+            p_lvl, flow, ok, counts, its, kw["hw"], d2["img"].shape, pad,
+            p.window_size)
         its = int(its)
-        point_iters = int(counts.cpu().numpy()[:its].sum())
-        n_live = int(alive.sum())
-        hp, wp = d2["img"].shape
-        h, w = kw["hw"]
-        win0 = torch.stack([
-            torch.clamp(p_lvl[ok, 0] - p.window_size + pad, 0, hp - T),
-            torch.clamp(p_lvl[ok, 1] - p.window_size + pad, 0, wp - T),
-        ], dim=-1)
-        p_f = p_lvl[ok].to(torch.float32)
-        q0 = p_f + flow[ok]
-        inb = ((q0[:, 0] >= 0) & (q0[:, 0] <= h - 1) & (q0[:, 1] >= 0)
-               & (q0[:, 1] <= w - 1))
-        q0_safe = torch.where(inb[:, None], q0, p_f)
-        base = (torch.floor(q0_safe).to(torch.int32) - p.window_size
-                - lk.LK_PATCH_MARGIN + pad)
-        patch0 = torch.stack([torch.clamp(base[:, 0], 0, hp - P),
-                              torch.clamp(base[:, 1], 0, wp - P)], dim=-1)
-        nbytes = (4 * 6 * _covered_pixels((hp, wp), win0, T)
-                  + 4 * _covered_pixels((hp, wp), patch0, P)
-                  + n * (8 + 8 + 1) + n * (8 + 1))
-        flops = 13 * T * T * point_iters + 7 * T * T * n_live
         b_ms, b_by = _bound(nbytes, flops)
         k_ms = _median_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
                                                     **kw))
@@ -504,10 +527,12 @@ def phase_lk_level(dev):
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=err, ok_agreement=agree,
                          iterations=its, point_iterations=point_iters))
+    batched = _lk_level_batched(dev, p, pad)
     return {"name": "lk_level", "route": "cuda",
             "source": "slamtpu_torch/csrc/lk_level.cu",
             "replaces": "slamtpu/ops/dma_gather.py:47",
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r.get("max_abs_err", 0.0)
+                               for r in rows + batched),
             "ms": sum(r["ms"] for r in rows),
             "device_ms": (None if any(r["device_ms"] is None for r in rows)
                           else sum(r["device_ms"] for r in rows)),
@@ -519,7 +544,113 @@ def phase_lk_level(dev):
             "note": "sums over level 0 and level 3 at N=1024; on the main "
                     "path it replaces K1's gathers, fused with the level "
                     "solve",
-            "per_level": rows}
+            "per_level": rows,
+            "batched": batched}
+
+
+# Sequences a launch in phase 4b's batched part: phase 17's two sizes.
+LEVEL_BATCHES = (4, 32)
+
+
+def _lk_level_batched(dev, p, pad):
+    """Phase 4b, batch axis: the level kernel at the level-0 and level-3
+    shapes (N = 1024 a sequence) over B frame pairs of bench.py's city
+    scene, frames (b, b + 1), in one launch. At B = 4: flows, ok masks,
+    stop-rule counts and K bit-exact against 4 single launches, and each
+    sequence against the batched plain version to 4b's agreement. At
+    B = 4 and 32: ms (CUDA events), device ms (torch.profiler) and the
+    bound, the sum of every sequence's bytes and operations (_level_work)."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch.ops import lucas_kanade as lk
+    from slamtpu_torch.ops.image import lk_pyramid_impl, pyramid_level_shape
+
+    _, frames = _city_scene(60)
+    n = p.keypoint_capacity
+    rows = []
+    for bsz in LEVEL_BATCHES:
+        imgs = np.stack([frames[b][0] for b in range(bsz + 1)])
+        pyrs = [lk_pyramid_impl(torch.from_numpy(
+            np.ascontiguousarray(im)).to(dev), levels=p.pyramid_levels,
+            pad=pad) for im in (imgs[:bsz], imgs[1:])]
+        for level in (0, p.pyramid_levels):
+            rng = np.random.default_rng(20 + level)
+            px = np.stack([rng.uniform(0, 375, (bsz, n)),
+                           rng.uniform(0, 1240, (bsz, n))], -1)
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            p_lvl = t(np.floor(px / 2.0 ** level).astype(np.int32))
+            flow = t(rng.normal(0.0, 1.5, (bsz, n, 2)).astype(np.float32))
+            ok = t(rng.uniform(size=(bsz, n)) < 0.9)
+            d1, d2 = pyrs[0][level], pyrs[1][level]
+            kw = dict(hw=pyramid_level_shape(d1, pad), window=p.window_size,
+                      iters=p.lk_iterations, eps=p.lk_epsilon,
+                      eig_thresh=p.lk_eigenvalue_threshold, pad=pad,
+                      min_active=p.lk_min_active)
+            before = lk.lk_level.launches
+            flow_b, ok_b, counts, ks = lk.lk_level_cuda(
+                d1, d2, p_lvl, flow, ok, return_counts=True, **kw)
+            torch.cuda.synchronize()
+            if lk.lk_level.launches != before + 1:
+                raise AssertionError("lk_level batched: not one launch")
+            row = dict(level=level, batch=bsz)
+            if bsz == LEVEL_BATCHES[0]:
+                for b in range(bsz):
+                    one = lk.lk_level_cuda(
+                        {"stack": d1["stack"][b]}, {"img": d2["img"][b]},
+                        p_lvl[b], flow[b], ok[b], return_counts=True, **kw)
+                    got = (flow_b[b], ok_b[b], counts[b], ks[b])
+                    if not all(torch.equal(x, y) for x, y in zip(got, one)):
+                        raise AssertionError(
+                            f"lk_level batched: sequence {b} at level "
+                            f"{level} differs from its single launch")
+                flow_p, ok_p = lk.lk_level_plain(d1, d2, p_lvl, flow, ok,
+                                                 **kw)
+                alive = ok.cpu().numpy()
+                ok_k_np, ok_p_np = ok_b.cpu().numpy(), ok_p.cpu().numpy()
+                agree = min(float((ok_k_np[b] == ok_p_np[b])[alive[b]]
+                                  .mean()) for b in range(bsz))
+                both = ok_k_np & ok_p_np
+                err = float(np.abs(flow_b.cpu().numpy()[both]
+                                   - flow_p.cpu().numpy()[both]).max())
+                if ok_k_np[~alive].any() or not agree >= 0.995 \
+                        or not err <= 1e-3:
+                    raise AssertionError(
+                        f"lk_level batched differs from its plain version "
+                        f"at level {level}: ok agreement {agree:.4f}, flow "
+                        f"error {err:.2e} px")
+                row.update(ok_agreement=agree, max_abs_err=err,
+                           single_launches="bit-exact",
+                           plain_ms=_median_ms(lambda: lk.lk_level_plain(
+                               d1, d2, p_lvl, flow, ok, **kw), reps=5,
+                               warmup=1))
+            work = [_level_work(p_lvl[b], flow[b], ok[b], counts[b], ks[b],
+                                kw["hw"], d2["img"].shape[-2:], pad,
+                                p.window_size) for b in range(bsz)]
+            b_ms, b_by = _bound(sum(w[0] for w in work),
+                                sum(w[1] for w in work))
+            row.update(
+                iterations=[int(k) for k in ks.cpu()],
+                point_iterations=sum(w[2] for w in work),
+                alive=sum(w[3] for w in work),
+                ms=_median_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow,
+                                                       ok, **kw), reps=20),
+                device_ms=_device_ms(lambda: lk.lk_level_cuda(
+                    d1, d2, p_lvl, flow, ok, **kw), "lk_level_kernel"),
+                bound_ms=b_ms, bound_by=b_by)
+            _log("lk_level_batched", level=level, batch=bsz,
+                 shape=tuple(d1["stack"].shape), n=n, alive=row["alive"],
+                 iterations=row["iterations"],
+                 point_iterations=row["point_iterations"],
+                 ok_agreement=f"{row.get('ok_agreement', float('nan')):.4f}",
+                 max_flow_err_px=f"{row.get('max_abs_err', float('nan')):.2e}",
+                 single_launches=row.get("single_launches", "-"),
+                 ms=f"{row['ms']:.4f}", device_ms=_fmt(row["device_ms"]),
+                 plain_ms=f"{row.get('plain_ms', float('nan')):.4f}",
+                 bound_ms=f"{b_ms:.6f}", bound_by=b_by)
+            rows.append(row)
+        del pyrs
+    return rows
 
 
 def phase_lk_level_1d(dev):
@@ -1678,20 +1809,65 @@ def _mesh_sequences():
             intr, np.asarray(gt, np.float32))
 
 
+# Sequences a batch in phase 17 (the four MESH_SEEDS pairs, repeated), and
+# the sequences of the larger batch that also run alone: the four seeds'
+# and two repeats (keys (0, 13) and (0, 30)).
+MESH_BATCHES = (4, 32)
+MESH_ALONE = (0, 1, 2, 3, 13, 30)
+
+
+def _mesh_batch(seqs, bsz):
+    """Both tracking steps' arguments for bsz sequences: the MESH_SEEDS
+    pairs repeated, sequence b with key (0, b); and frame 1's poses."""
+    import numpy as np
+
+    img_prev, img_cur, pts, pts3d, intr, gt = (
+        x if x.ndim == 1 else np.concatenate([x] * (bsz // len(x)))
+        for x in seqs)
+    valid = np.ones((bsz, MESH_N), bool)
+    theta0 = np.zeros((bsz, 6), np.float32)     # frame 0 is the identity
+    und_xy = pts[..., ::-1].copy()
+    bear_xy = np.stack([(pts[..., 1] - intr[2]) / intr[0],
+                        (pts[..., 0] - intr[3]) / intr[1]], -1)
+    fe_args = (img_prev, img_cur, pts, valid, valid.copy(),
+               np.zeros_like(pts), pts3d, valid.copy(), und_xy,
+               bear_xy.astype(np.float32), valid.copy(),
+               np.tile(np.eye(3, dtype=np.float32), (bsz, 1, 1)), theta0,
+               intr, np.zeros(4, np.float32),
+               np.stack([np.zeros(bsz), np.arange(bsz)], -1)
+               .astype(np.uint32))
+    ms_args = (img_prev, img_cur, pts, pts3d, theta0, valid, intr)
+    return ms_args, fe_args, gt
+
+
+def _one_of(args, b):
+    """A step's arguments cut to sequence b alone (the shared intrinsics
+    and distortion stay)."""
+    return tuple(a if a.ndim == 1 else a[b:b + 1] for a in args)
+
+
 def phase_mesh(dev):
     """Phase 17: slamtpu_torch/parallel/multi.py at the default Params'
     widths (376x1241, N = 1024, levels 3, window 9, 256 hypotheses) on one
     NCCL rank (mesh (1, 1)), destroyed after the phase: multi_sequence_step
-    and frontend_mesh_step on _mesh_sequences (B = 4), ba_mesh_step on
-    make_ba_inputs padded to P = 16, X = 2048, O = 8192 (6 free poses), and
-    dryrun_mapper_offload with the keyframe program on a second stream of
-    the card, at make_offload_inputs(376, 1241, cap=1024, n=60, levels=3,
-    window=9). Asserts the 2-D level kernel launched by both tracking
-    steps, K2 and keyframe_step_carry by the offload, offload parity
-    bit-exact with n_new > 0, tracked points and P3P inliers at or above
-    MESH_FLOORS, the GN and PnP poses nearer frame 1's than the input, BA's
-    final cost below its cost at the input and its pose error < 0.6x the
-    perturbation. Prints each step's ms (CUDA events, median of 3)."""
+    and frontend_mesh_step on the MESH_SEEDS pairs at B = 4 and on those
+    pairs repeated 8 times at B = 32 (key (0, b)), and on each MESH_ALONE
+    sequence alone; ba_mesh_step on make_ba_inputs padded to P = 16,
+    X = 2048, O = 8192 (6 free poses), and dryrun_mapper_offload with the
+    keyframe program on a second stream of the card, at
+    make_offload_inputs(376, 1241, cap=1024, n=60, levels=3, window=9).
+    Asserts the level kernel's launches a step equal at B = 1, 4 and 32
+    (one launch a level for the whole batch), K2 and keyframe_step_carry
+    launched by the offload, offload parity bit-exact with n_new > 0,
+    tracked points and P3P inliers at or above MESH_FLOORS for every
+    sequence, the GN and PnP poses nearer frame 1's than the input, each
+    MESH_ALONE sequence of both batches equal to its run alone (ok and P3P
+    inliers equal, points within 1e-3 px, poses within 1e-2:
+    tests/test_parallel.py's bounds), BA's final cost below its cost at the
+    input and its pose error < 0.6x the perturbation. Prints each step's
+    ms (CUDA events, median of 3) and sequences a second at both sizes,
+    and the level kernel's device ms a launch in each step
+    (torch.profiler)."""
     import numpy as np
     import torch
 
@@ -1699,40 +1875,37 @@ def phase_mesh(dev):
     from slamtpu_torch.ops.lucas_kanade import lk_level
     from slamtpu_torch.parallel import launch, multi
 
-    img_prev, img_cur, pts, pts3d, intr, gt = _mesh_sequences()
-    B = len(MESH_SEEDS)
-    valid = np.ones((B, MESH_N), bool)
-    theta0 = np.zeros((B, 6), np.float32)       # frame 0 is the identity
-    und_xy = pts[..., ::-1].copy()
-    bear_xy = np.stack([(pts[..., 1] - intr[2]) / intr[0],
-                        (pts[..., 0] - intr[3]) / intr[1]], -1)
-    fe_args = (img_prev, img_cur, pts, valid, valid.copy(),
-               np.zeros_like(pts), pts3d, valid.copy(), und_xy,
-               bear_xy.astype(np.float32), valid.copy(),
-               np.tile(np.eye(3, dtype=np.float32), (B, 1, 1)), theta0,
-               intr, np.zeros(4, np.float32),
-               np.stack([np.zeros(B), np.arange(B)], -1).astype(np.uint32))
+    seqs = _mesh_sequences()
+    batches = {bsz: _mesh_batch(seqs, bsz) for bsz in MESH_BATCHES}
     ba_args, ba_gt, _ = multi.make_ba_inputs(16, 2048, 8192, n_free=6)
     off_inputs = multi.make_offload_inputs(376, 1241, cap=1024, n=60,
                                            levels=3, window=9)
-    steps_ms = {}
+    steps_ms, level_ms, outs, alone = {}, {}, {}, {}
+    level_launches = {}
     _reset_counts()
     keyframe_step_carry.launches = 0
     with launch.one_rank(dev):
         mesh = multi.make_mesh(1)
-        ms_step = multi.multi_sequence_step(mesh, levels=3, window=9)
-        fe_step = multi.frontend_mesh_step(mesh, levels=3, window=9,
-                                           essential_hypotheses=256,
-                                           pnp_hypotheses=256)
+        steps = {"ms": multi.multi_sequence_step(mesh, levels=3, window=9),
+                 "fe": multi.frontend_mesh_step(mesh, levels=3, window=9,
+                                                essential_hypotheses=256,
+                                                pnp_hypotheses=256)}
         ba_step = multi.ba_mesh_step(mesh)
-        ms_args = (img_prev, img_cur, pts, pts3d, theta0, valid, intr)
 
-        before = lk_level.launches
-        ms_out = multi.to_host(ms_step(*ms_args))
-        ms_launches = lk_level.launches - before
-        before = lk_level.launches
-        fe_out = multi.to_host(fe_step(*fe_args))
-        fe_launches = lk_level.launches - before
+        def counted(name, args):
+            before = lk_level.launches
+            out = multi.to_host(steps[name](*args))
+            return out, lk_level.launches - before
+
+        for bsz, (ms_args, fe_args, _) in batches.items():
+            for name, args in (("ms", ms_args), ("fe", fe_args)):
+                outs[name, bsz], level_launches[name, bsz] = counted(
+                    name, args)
+        big_ms, big_fe, _ = batches[MESH_BATCHES[-1]]
+        for b in MESH_ALONE:
+            for name, args in (("ms", big_ms), ("fe", big_fe)):
+                alone[name, b], level_launches[name, 1] = counted(
+                    name, _one_of(args, b))
         ba_out = multi.to_host(ba_step(*ba_args))
         ba_cost0 = float(multi.to_host(multi.ba_mesh_step(
             mesh, iters1=0, iters2=0)(*ba_args))["final_cost"])
@@ -1747,57 +1920,108 @@ def phase_mesh(dev):
         launches = _read_counts()
 
         # Timings after the counted run (launches there do not count).
-        for name, fn in (("multi_sequence_step", lambda: ms_step(*ms_args)),
-                         ("frontend_mesh_step", lambda: fe_step(*fe_args)),
-                         ("ba_mesh_step", lambda: ba_step(*ba_args))):
-            steps_ms[name] = _median_ms(fn, reps=3, warmup=1)
+        for bsz, (ms_args, fe_args, _) in batches.items():
+            for name, args in (("multi_sequence_step", ms_args),
+                               ("frontend_mesh_step", fe_args)):
+                step = steps["fe" if name.startswith("frontend") else "ms"]
+                steps_ms[name, bsz] = _median_ms(
+                    lambda: step(*args), reps=3, warmup=1)
+                level_ms[name, bsz] = _device_ms(
+                    lambda: step(*args), "lk_level_kernel", reps=2)
+        steps_ms["ba_mesh_step"] = _median_ms(lambda: ba_step(*ba_args),
+                                              reps=3, warmup=1)
 
-    new_pts, ok, new_theta, cost = ms_out
-    new_px, fe_ok, _, _, pnp_theta, med_par, p3p_n = fe_out
+    floors = MESH_FLOORS
+    for bsz in MESH_BATCHES:
+        gt = batches[bsz][2]
+        _, ok, new_theta, cost = outs["ms", bsz]
+        _, fe_ok, _, _, pnp_theta, med_par, p3p_n = outs["fe", bsz]
+        gn_err = np.abs(new_theta - gt).max(-1)
+        pnp_err = np.abs(pnp_theta - gt).max(-1)
+        start_err = np.abs(gt).max(-1)
+        _log("mesh", batch=bsz, seeds=",".join(map(str, MESH_SEEDS)),
+             tracked=ok.sum(-1).tolist(),
+             gn_pose_err=np.round(gn_err.astype(float), 5).tolist(),
+             start_pose_err=np.round(start_err.astype(float), 5).tolist(),
+             fe_tracked=fe_ok.sum(-1).tolist(), p3p_inliers=p3p_n.tolist(),
+             pnp_pose_err=np.round(pnp_err.astype(float), 5).tolist(),
+             median_parallax=np.round(med_par.astype(float), 4).tolist())
+        if (ok.sum(-1) < floors["tracked"]).any() \
+                or (fe_ok.sum(-1) < floors["tracked"]).any():
+            raise AssertionError(f"mesh B={bsz}: tracked {ok.sum(-1)} / "
+                                 f"{fe_ok.sum(-1)} < {floors['tracked']}")
+        if (p3p_n < floors["p3p_inliers"]).any():
+            raise AssertionError(f"mesh B={bsz}: P3P inliers {p3p_n} < "
+                                 f"{floors['p3p_inliers']}")
+        if not ((gn_err < start_err).all() and (pnp_err < start_err).all()):
+            raise AssertionError(f"mesh B={bsz}: pose errors GN {gn_err}, "
+                                 f"PnP {pnp_err} not below the input's "
+                                 f"{start_err}")
+        if not np.all(np.isfinite(cost)):
+            raise AssertionError(f"mesh B={bsz}: GN cost {cost}")
+    # Each MESH_ALONE sequence (of the larger batch; 0-3 of both) against
+    # its run alone.
+    worst = {"px": 0.0, "theta": 0.0}
+    for bsz in MESH_BATCHES:
+        for b in (b for b in MESH_ALONE if b < bsz):
+            for name, px_i, ok_i, th_i, n_i in (("ms", 0, 1, 2, None),
+                                               ("fe", 0, 1, 4, 6)):
+                got = [x[b] for x in outs[name, bsz]]
+                one = [x[0] for x in alone[name, b]]
+                ok_b = one[ok_i]
+                d_px = float(np.abs(got[px_i] - one[px_i])[ok_b].max(
+                    initial=0.0))
+                d_th = float(np.abs(got[th_i] - one[th_i]).max())
+                worst["px"] = max(worst["px"], d_px)
+                worst["theta"] = max(worst["theta"], d_th)
+                same_n = n_i is None or got[n_i] == one[n_i]
+                if not (np.array_equal(got[ok_i], ok_b) and d_px <= 1e-3
+                        and d_th <= 1e-2 and same_n):
+                    raise AssertionError(
+                        f"mesh: {name} sequence {b} of B={bsz} differs "
+                        f"from its run alone: ok equal "
+                        f"{np.array_equal(got[ok_i], ok_b)}, points "
+                        f"{d_px:.2e} px, pose {d_th:.2e}, P3P inliers "
+                        f"{same_n}")
     err_in = np.abs(ba_args[0] - ba_gt).max()
     err_ba = np.abs(ba_out["poses"] - ba_gt).max()
-    gn_err = np.abs(new_theta - gt).max(-1)
-    pnp_err = np.abs(pnp_theta - gt).max(-1)
-    start_err = np.abs(theta0 - gt).max(-1)
+    per_step = {f"{name}@{bsz}": n for (name, bsz), n in
+                sorted(level_launches.items())}
     _log("mesh", mesh=json.dumps(multi.mesh_dict(mesh)),
-         seeds=",".join(map(str, MESH_SEEDS)),
-         tracked=ok.sum(-1).tolist(), gn_pose_err=np.round(gn_err, 5).tolist(),
-         start_pose_err=np.round(start_err, 5).tolist(),
-         fe_tracked=fe_ok.sum(-1).tolist(), p3p_inliers=p3p_n.tolist(),
-         pnp_pose_err=np.round(pnp_err, 5).tolist(),
-         median_parallax=np.round(med_par, 4).tolist())
+         alone=",".join(map(str, MESH_ALONE)),
+         alone_max_px=f"{worst['px']:.2e}",
+         alone_max_pose=f"{worst['theta']:.2e}",
+         level_launches_a_step=json.dumps(per_step, separators=(",", ":")))
     _log("mesh", ba_cost0=f"{ba_cost0:.4f}",
          ba_final_cost=f"{float(ba_out['final_cost']):.4f}",
          ba_outliers=int(ba_out["outliers"].sum()),
          ba_pose_err=f"{err_ba:.5f}", ba_input_err=f"{err_in:.5f}",
          offload=json.dumps(offload), offload_k2=off_k2,
          offload_keyframe_programs=off_kf,
-         level_launches_ms=ms_launches, level_launches_fe=fe_launches,
          launches=json.dumps(launches, separators=(",", ":")))
-    _log("mesh", ms=json.dumps({k: round(v, 3) for k, v in
-                                 steps_ms.items()}), card=f"'{SMI}'")
+    for bsz in MESH_BATCHES:
+        _log("mesh", batch=bsz, card=f"'{SMI}'", **{
+            f"{name}_ms": f"{steps_ms[name, bsz]:.3f}" for name in
+            ("multi_sequence_step", "frontend_mesh_step")}, **{
+            f"{name}_seq_per_s": f"{bsz / steps_ms[name, bsz] * 1e3:.2f}"
+            for name in ("multi_sequence_step", "frontend_mesh_step")}, **{
+            f"{name}_level_device_ms_a_launch": _fmt(level_ms[name, bsz])
+            for name in ("multi_sequence_step", "frontend_mesh_step")})
+    _log("mesh", ba_mesh_step_ms=f"{steps_ms['ba_mesh_step']:.3f}",
+         card=f"'{SMI}'")
 
-    floors = MESH_FLOORS
-    if ms_launches <= 0 or fe_launches <= 0:
-        raise AssertionError(f"mesh: the level kernel launched {ms_launches}"
-                             f" / {fe_launches} times by the tracking steps")
+    for name in ("ms", "fe"):
+        counts = {bsz: level_launches[name, bsz] for bsz in
+                  (1,) + MESH_BATCHES}
+        if len(set(counts.values())) != 1 or counts[1] <= 0:
+            raise AssertionError(f"mesh: the level kernel's launches a "
+                                 f"{name} step depend on the batch: "
+                                 f"{counts}")
     if off_k2 <= 0 or off_kf <= 0:
         raise AssertionError(f"mesh: the offload launched K2 {off_k2} and "
                              f"keyframe_step_carry {off_kf} times")
     if offload["n_new"] <= 0:
         raise AssertionError(f"mesh: the offload admitted nothing: {offload}")
-    if (ok.sum(-1) < floors["tracked"]).any() \
-            or (fe_ok.sum(-1) < floors["tracked"]).any():
-        raise AssertionError(f"mesh: tracked {ok.sum(-1)} / "
-                             f"{fe_ok.sum(-1)} < {floors['tracked']}")
-    if (p3p_n < floors["p3p_inliers"]).any():
-        raise AssertionError(f"mesh: P3P inliers {p3p_n} < "
-                             f"{floors['p3p_inliers']}")
-    if not ((gn_err < start_err).all() and (pnp_err < start_err).all()):
-        raise AssertionError(f"mesh: pose errors GN {gn_err}, PnP {pnp_err} "
-                             f"not below the input's {start_err}")
-    if not np.all(np.isfinite(cost)):
-        raise AssertionError(f"mesh: GN cost {cost}")
     if not float(ba_out["final_cost"]) < ba_cost0:
         raise AssertionError(f"mesh: BA cost {float(ba_out['final_cost'])} "
                              f"not below {ba_cost0}")

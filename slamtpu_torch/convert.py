@@ -51,10 +51,11 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def level_from_stack(stack: torch.Tensor) -> dict:
-    """Per-level dict (the JAX layout): the stack plus its six views."""
+    """Per-level dict (the JAX layout): the stack plus its six views (of a
+    batched (B, 6, Hp, Wp) stack, (B, Hp, Wp) views)."""
     level = {"stack": stack}
     for c, name in enumerate(STACK_KEYS):
-        level[name] = stack[c]
+        level[name] = stack.select(-3, c)
     return level
 
 

@@ -1,7 +1,8 @@
-// One pyramid level of the Lucas-Kanade solver for all N points, in one
-// plain launch with no grid barrier: the window gather, the structure
-// tensor, the eigenvalue gate, the whole Gauss-Newton loop, and the global
-// stop rule, resolved by the last block to finish.
+// One pyramid level of the Lucas-Kanade solver for all N points of each of
+// B sequences, in one plain launch with no grid barrier: the window gather,
+// the structure tensor, the eigenvalue gate, the whole Gauss-Newton loop,
+// and each sequence's stop rule, resolved by the last of its blocks to
+// finish.
 //
 // Replaces the TPU kernel slamtpu/ops/dma_gather.py::_span_kernel as the
 // main path uses it: the JAX package's level solver
@@ -47,6 +48,17 @@
 // rewrites the points with s > K. No block ever waits on another, so the
 // grid needs no residency and N has no cap.
 //
+// Batch axis: the grid is (blocks a sequence, B); blockIdx.y is the
+// sequence. Every per-sequence array ((B, N, ...) points, flows and masks,
+// (B, iters + 1, N) hist, (B, N) steps) and the sequence's own sync words
+// (B blocks of 2 * iters + 5) are offset by it, and the stack and the
+// second image by their batch strides, before anything else runs, so the
+// code below sees one sequence, as the JAX package's vmapped while_loop
+// does: a sequence has its own histogram, ticket, counts and K, its last
+// block resolves its rule (the ticket against gridDim.x, its own block
+// count), and no sequence waits for, or stops, another. B = 1 is the
+// unbatched level.
+//
 // What bounds it on the H100. Bytes: at level 0, N = 1024 and window 9
 // (T = 19, P = 32) the function must read each live point's 6 x T x T stack
 // window and P x P patch once: ~7.4 MB of distinct pixels, ~2.2 us at 3.35
@@ -58,6 +70,9 @@
 // (scripts/lk_level_anatomy.py): ~13.6 us at iters = 0, then ~0.45 us an
 // iteration, ~27 us at level 0. Speculative iterations past K are not
 // work of the function; they run beside the others on their own warps.
+// A batch of B sequences is B times the bytes and operations in one grid
+// of B times the blocks: the per-warp chain stays, and more blocks than the
+// SMs hold at once run in waves.
 //
 // TMA is not used: a tensor map needs row strides that are multiples of 16
 // bytes, and the padded level widths at 1241 columns (1275, 655, 345 and
@@ -113,6 +128,7 @@ constexpr unsigned kFull = 0xffffffffu;
 struct LevelArgs {
   const float* stack;    // (6, Hp, Wp): img, Iy, Ix, Gyy, Gxx, Gyx
   const float* img2;     // (Hp, Wp)
+  int64_t stack_bs, img_bs;  // batch strides of stack and img2, in floats
   const int32_t* p_lvl;  // (N, 2) level coordinates (y, x)
   const float* flow_in;  // (N, 2)
   const uint8_t* ok_in;  // (N,)
@@ -126,6 +142,23 @@ struct LevelArgs {
   int Hp, Wp, N, H, W, w, iters, pad, min_active, escape_fail;
   float eps, eig_thresh;
 };
+
+// The arguments of sequence blockIdx.y: every pointer moved to its slice.
+__device__ __forceinline__ LevelArgs sequence_args(LevelArgs a) {
+  const int64_t b = blockIdx.y;
+  const int64_t n = a.N;
+  a.stack += b * a.stack_bs;
+  a.img2 += b * a.img_bs;
+  a.p_lvl += b * n * 2;
+  a.flow_in += b * n * 2;
+  a.ok_in += b * n;
+  a.flow_out += b * n * 2;
+  a.ok_out += b * n;
+  a.hist += b * (a.iters + 1) * n;
+  a.steps += b * n;
+  a.sync += b * (2 * a.iters + 5);
+  return a;
+}
 
 // Row pitch of a staged patch: T + 32 (P = T + 13 columns, then padding),
 // so that pitch = T (mod 32) and the window pixel k = lane + 32 j lands in
@@ -240,8 +273,9 @@ __device__ void finish_level(const LevelArgs& a, int s, bool one_d,
 // kPix: window pixels a lane holds, >= ceil(T * T / 32).
 template <int kPix>
 __global__ void __launch_bounds__(kWarps * 32)
-lk_level_kernel(LevelArgs a) {
+lk_level_kernel(LevelArgs args) {
   extern __shared__ float smem[];
+  const LevelArgs a = sequence_args(args);
 
   const int T = 2 * a.w + 1;
   const int TT = T * T;
@@ -423,8 +457,9 @@ lk_level_kernel(LevelArgs a) {
 // per-warp layout and stop-rule resolve as lk_level_kernel, on x alone.
 template <int kPix>
 __global__ void __launch_bounds__(kWarps * 32)
-lk_level_1d_kernel(LevelArgs a) {
+lk_level_1d_kernel(LevelArgs args) {
   extern __shared__ float smem[];
+  const LevelArgs a = sequence_args(args);
 
   const int T = 2 * a.w + 1;
   const int TT = T * T;
@@ -567,8 +602,9 @@ size_t smem_bytes(int window, int iters) {
 }
 
 template <int kPix>
-cudaError_t launch(const LevelArgs& a, bool one_d, cudaStream_t stream) {
-  const int blocks = (a.N + kWarps - 1) / kWarps;
+cudaError_t launch(const LevelArgs& a, int batch, bool one_d,
+                   cudaStream_t stream) {
+  const dim3 blocks((a.N + kWarps - 1) / kWarps, batch);
   const size_t smem = smem_bytes(a.w, a.iters);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -586,24 +622,30 @@ cudaError_t launch(const LevelArgs& a, bool one_d, cudaStream_t stream) {
 
 }  // namespace
 
+// batch sequences of N points; stack_bs and img_bs: the batch strides of
+// stack and img2 in floats (0 for one sequence). Every other array is
+// contiguous (batch, ...).
 extern "C" int slamtpu_lk_level(const float* stack, const float* img2,
                                 const int32_t* p_lvl, const float* flow_in,
                                 const uint8_t* ok_in, float* flow_out,
                                 uint8_t* ok_out, float* hist, int32_t* steps,
-                                int32_t* sync, int Hp, int Wp, int N, int H,
+                                int32_t* sync, int batch, int64_t stack_bs,
+                                int64_t img_bs, int Hp, int Wp, int N, int H,
                                 int W, int window, int iters, int pad,
                                 int min_active, int escape_fail, int one_d,
                                 float eps, float eig_thresh, void* stream) {
-  if (N <= 0) return 0;
-  LevelArgs a{stack, img2, p_lvl, flow_in, ok_in, flow_out, ok_out,
-              reinterpret_cast<float2*>(hist), steps, sync, Hp, Wp, N, H, W,
-              window, iters, pad, min_active, escape_fail, eps, eig_thresh};
+  if (N <= 0 || batch <= 0) return 0;
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  LevelArgs a{stack, img2, stack_bs, img_bs, p_lvl, flow_in, ok_in,
+              flow_out, ok_out, reinterpret_cast<float2*>(hist), steps, sync,
+              Hp, Wp, N, H, W, window, iters, pad, min_active, escape_fail,
+              eps, eig_thresh};
   const int T = 2 * window + 1;
   const int pix = (T * T + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (pix <= 12) e = launch<12>(a, one_d, s);  // windows up to 9
-  else if (pix <= kMaxPix) e = launch<kMaxPix>(a, one_d, s);
+  if (pix <= 12) e = launch<12>(a, batch, one_d, s);  // windows up to 9
+  else if (pix <= kMaxPix) e = launch<kMaxPix>(a, batch, one_d, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

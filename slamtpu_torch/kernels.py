@@ -49,9 +49,10 @@ _SIGNATURES = {
     "slamtpu_suppress_nms": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                              _P],
     # stack, img2, p_lvl, flow_in, ok_in, flow_out, ok_out, hist, steps,
-    # sync, Hp, Wp, N, H, W, window, iters, pad, min_active, escape_fail,
-    # one_d, eps, eig_thresh, stream
-    "slamtpu_lk_level": [_P] * 10 + [_I] * 11 + [ctypes.c_float] * 2 + [_P],
+    # sync, batch, stack_bs, img_bs, Hp, Wp, N, H, W, window, iters, pad,
+    # min_active, escape_fail, one_d, eps, eig_thresh, stream
+    "slamtpu_lk_level": [_P] * 10 + [_I] + [ctypes.c_int64] * 2 + [_I] * 11
+    + [ctypes.c_float] * 2 + [_P],
 }
 
 # Seconds the last build in this process took (0.0 when loaded from disk).

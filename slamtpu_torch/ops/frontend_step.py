@@ -10,8 +10,16 @@ keyframe-decision median parallax (reference front_end.jl:75-118).
 (N + 3, 13) f32 `state` upload in, one (N, 11) `per_kp` and one (48,)
 `scalars` out, so the host code and the tests read both packages' outputs
 the same way.
+
+`frontend_geometry_batched` runs the geometry over a leading batch of
+sequences as one program: `torch.func.vmap` of `frontend_geometry`, each op
+once over the batch, as the JAX package's multi-device step vmaps it. The
+geometry's code therefore stays vmap-safe: keys as tensors, no in-place
+write of a batched value into an unbatched tensor, no host read.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -197,6 +205,27 @@ def frontend_geometry(new_px, ok, tracked_with_prior, mp_pos, has_mp,
         "pnp_n_outliers": ref["n_outliers"],
         "median_parallax": median_parallax,
     }
+
+
+def frontend_geometry_batched(new_px, ok, tracked_with_prior, mp_pos, has_mp,
+                              join_idx, join_valid, prev_und_xy,
+                              prev_bearing_xy, R_comp, theta_predicted,
+                              intrinsics, dist, keys, **kw):
+    """`frontend_geometry` over B sequences at once: every per-sequence
+    argument with a leading B, `keys` a (B, 2) tensor of raw threefry
+    keys; `join_idx` (N,), `intrinsics` and `dist` shared (or batched).
+    Returns its dict with a leading B on every entry. Sequence b draws the
+    hypotheses of key b alone; its values agree with frontend_geometry's on
+    that sequence to float32 rounding (batched small products may sum in
+    another order)."""
+    shared = [0 if x.dim() == d else None for x, d in
+              ((join_idx, 2), (intrinsics, 2), (dist, 2))]
+    in_dims = (0,) * 5 + (shared[0],) + (0,) * 5 + tuple(shared[1:]) + (0,)
+    fn = functools.partial(frontend_geometry, **kw)
+    return torch.func.vmap(fn, in_dims=in_dims)(
+        new_px, ok, tracked_with_prior, mp_pos, has_mp, join_idx, join_valid,
+        prev_und_xy, prev_bearing_xy, R_comp, theta_predicted, intrinsics,
+        dist, keys)
 
 
 def frontend_step_v2(image, pyr_prev, state, key, *, levels: int, window: int,

@@ -5,6 +5,12 @@ Port of slamtpu/ops/image.py::lk_pyramid_impl / build_lk_pyramid. Level
 dicts hold a zero-padded (6, Hp, Wp) `stack` = (img, Iy, Ix, Gyy, Gxx, Gyx)
 and its six views, exactly the JAX layout (slamtpu_torch/convert.py).
 
+An image may carry a leading batch of sequences, (B, H, W): the stacks
+are then (B, 6, Hp, Wp) and every filter runs once over the batch, as the
+JAX package's `vmap` runs it. A sequence's pyramid does not depend on the
+batch it is built in: on the CPU a batched pyramid is bit-equal to B
+single ones, and on the card to the same batch built at any B.
+
 Two points where PyTorch's defaults differ from XLA's:
   - `lax.conv_general_dilated` and `F.conv2d` are both correlations, so the
     antisymmetric Scharr tap [-1, 0, 1] / 2 is used as is (no flip).
@@ -13,12 +19,16 @@ Two points where PyTorch's defaults differ from XLA's:
     and its `antialias=True` is another kernel. The port builds JAX's
     separable weight matrices (jax/_src/image/scale.py::compute_weight_mat,
     same float32 steps) for the exact ceil-halved shapes (1241 -> 621 is
-    not an exact half). On the card they are applied as two dense
-    products, one launch each. On the CPU a dense product sums in an order
-    that changes with torch's thread count, so there each output adds its
-    few nonzero weights times their inputs one tap after another, in
+    not an exact half). For one image on the card they are applied as two
+    dense products, one launch each. A dense product sums in an order
+    that changes with torch's CPU thread count, and on the card with the
+    shape cuBLAS is given (a batch of images folded into one product sums
+    each output in another order than one image's product). So on the
+    CPU, and for a batch of images on the card, each output adds its few
+    nonzero weights times their inputs one tap after another, in
     increasing input order, rounding as a fused multiply-add does: the
-    bits of a single-threaded product, on any thread count.
+    bits of a single-threaded product, on any thread count and at any
+    batch size.
 """
 from __future__ import annotations
 
@@ -122,32 +132,33 @@ def _resize_taps(in_size: int, out_size: int, device):
 
 
 def _tap_sum(x, taps, dim: int):
-    """Resize float32 (H, W) along `dim` by a tap sum, elementwise ops only,
+    """Resize float32 (..., H, W) along `dim` (-2 or -1) by a tap sum,
+    elementwise ops only,
     so every output's sum runs in the same order on any thread count. Each
     tap is a fused multiply-add: the product of two float32 values is exact
     in float64, and the sum is rounded to float32."""
     idx, wt = taps
     out = None
     for k in range(idx.shape[0]):
-        wk = wt[k][:, None] if dim == 0 else wt[k][None, :]
+        wk = wt[k][:, None] if dim == -2 else wt[k][None, :]
         term = torch.index_select(x, dim, idx[k]).double() * wk
         out = (term if out is None else out.double() + term).float()
     return out
 
 
 def resize_bilinear(img, shape):
-    """(H, W) -> shape, matching jax.image.resize(img, shape, "linear"):
-    a tap sum on the CPU, two dense products elsewhere (see the module
-    note)."""
-    h, w = img.shape
+    """(..., H, W) -> (..., *shape), matching jax.image.resize(img, shape,
+    "linear") on each (H, W) plane: a tap sum on the CPU and for a batch,
+    two dense products for one image on the card (see the module note)."""
+    h, w = img.shape[-2:]
     oh, ow = shape
     out = img
-    cpu = img.device.type == "cpu"
+    taps = img.device.type == "cpu" or img.dim() > 2
     if oh != h:
-        out = (_tap_sum(out, _resize_taps(h, oh, img.device), 0) if cpu
+        out = (_tap_sum(out, _resize_taps(h, oh, img.device), -2) if taps
                else _resize_weights(h, oh, img.device).T @ out)
     if ow != w:
-        out = (_tap_sum(out, _resize_taps(w, ow, img.device), 1) if cpu
+        out = (_tap_sum(out, _resize_taps(w, ow, img.device), -1) if taps
                else out @ _resize_weights(w, ow, img.device))
     return out
 
@@ -172,22 +183,26 @@ def _pyramid_kernels(sigma: float, product_sigma: float, device):
 
 
 def _conv_spread(img, kys):
-    """img (H, W) -> (C, H, W): one vertical SAME correlation per row of
-    kys (C, kh)."""
+    """img (..., H, W) -> (..., C, H, W): one vertical SAME correlation per
+    row of kys (C, kh)."""
     kh = kys.shape[1]
-    return F.conv2d(img[None, None], kys[:, None, :, None],
-                    padding=(kh // 2, 0))[0]
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    out = F.conv2d(img.reshape(-1, 1, h, w), kys[:, None, :, None],
+                   padding=(kh // 2, 0))
+    return out.reshape(lead + out.shape[1:])
 
 
 def _conv_grouped(x, ks, axis: int):
-    """x (C, H, W) -> per-channel SAME correlation along `axis` (0 = rows,
-    1 = columns), channel c using kernel row ks[c]."""
+    """x (..., C, H, W) -> per-channel SAME correlation along `axis` (0 =
+    rows, 1 = columns), channel c using kernel row ks[c]."""
     c, k = ks.shape
     if axis == 0:
         kern, pad = ks[:, None, :, None], (k // 2, 0)
     else:
         kern, pad = ks[:, None, None, :], (0, k // 2)
-    return F.conv2d(x[None], kern, padding=pad, groups=c)[0]
+    out = F.conv2d(x.reshape((-1,) + x.shape[-3:]), kern, padding=pad,
+                   groups=c)
+    return out.reshape(x.shape)
 
 
 def pyramid_shapes(height: int, width: int, levels: int):
@@ -200,7 +215,8 @@ def pyramid_shapes(height: int, width: int, levels: int):
 
 def lk_pyramid_impl(image, *, levels: int, sigma: float = 1.0, pad: int = 11,
                     product_sigma: float = 4.0):
-    """Image (H, W) in [0, 1] (any float dtype) -> tuple of level dicts."""
+    """Image (H, W) in [0, 1] (any float dtype) -> tuple of level dicts;
+    images (B, H, W) -> levels of (B, 6, Hp, Wp) stacks."""
     current = image.to(torch.float32)
     scharr_y, scharr_x, blur4, blur3 = _pyramid_kernels(
         float(sigma), float(product_sigma), current.device
@@ -209,21 +225,22 @@ def lk_pyramid_impl(image, *, levels: int, sigma: float = 1.0, pad: int = 11,
     blurred_next = None
     for level in range(levels + 1):
         if level > 0:
-            h, w = current.shape
+            h, w = current.shape[-2:]
             current = resize_bilinear(
                 blurred_next, ((h + 1) // 2, (w + 1) // 2)
             )
         g = _conv_grouped(_conv_spread(current, scharr_y), scharr_x, 1)
-        iy, ix = g[0], g[1]
-        prods = torch.stack([iy * iy, ix * ix, iy * ix])
+        iy, ix = g[..., 0, :, :], g[..., 1, :, :]
+        prods = torch.stack([iy * iy, ix * ix, iy * ix], dim=-3)
         if level < levels:
-            x4 = torch.cat([prods, current[None]])
+            x4 = torch.cat([prods, current[..., None, :, :]], dim=-3)
             sm = _conv_grouped(_conv_grouped(x4, blur4, 0), blur4, 1)
-            blurred_next = sm[3]
+            blurred_next = sm[..., 3, :, :]
         else:
             sm = _conv_grouped(_conv_grouped(prods, blur3, 0), blur3, 1)
         stack = F.pad(
-            torch.stack([current, iy, ix, sm[0], sm[1], sm[2]]),
+            torch.stack([current, iy, ix, sm[..., 0, :, :],
+                         sm[..., 1, :, :], sm[..., 2, :, :]], dim=-3),
             (pad, pad, pad, pad),
         )
         out.append(level_from_stack(stack))
@@ -233,11 +250,11 @@ def lk_pyramid_impl(image, *, levels: int, sigma: float = 1.0, pad: int = 11,
 def build_lk_pyramid(image, *, levels: int, sigma: float = 1.0,
                      pad: int = 11, product_sigma: float = 4.0):
     """Image (H, W) in [0, 1] -> LK pyramid (same contract as the JAX
-    package's jitted build_lk_pyramid)."""
+    package's jitted build_lk_pyramid); (B, H, W) -> a batched one."""
     return lk_pyramid_impl(image, levels=levels, sigma=sigma, pad=pad,
                            product_sigma=product_sigma)
 
 
 def pyramid_level_shape(level: dict, pad: int):
-    h, w = level["img"].shape
+    h, w = level["img"].shape[-2:]
     return h - 2 * pad, w - 2 * pad

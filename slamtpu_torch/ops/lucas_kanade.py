@@ -20,6 +20,14 @@ registers and shared memory, the whole solver loop and its stop rule on
 the device, with no grid barrier) or raises. On the card the cascade therefore issues no
 host sync in either mode.
 
+Batch axis. Every entry point also takes a leading batch of B sequences:
+pyramid levels of (B, 6, Hp, Wp) stacks and (B, Hp, Wp) images (a batched
+lk_pyramid_impl) with points, flows and masks (B, N, ...). On the card a
+batched level is ONE launch over all B sequences, each with its own stop
+rule, as the JAX package's `vmap` of its level while_loop gives; the plain
+versions run one sequence after another. `fb_retry_compact` gives each
+sequence its own RETRY_CAP retry lanes. The unbatched call is B = 1.
+
 Semantics kept exactly, because results depend on them:
   - the level loop stops when at most min(lk_min_active, sum(ok) // 32)
     points still iterate (the JAX `lax.while_loop` condition, checked
@@ -96,8 +104,14 @@ def lk_level_plain(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
     hand-written kernel runs in it, on any device.
 
     p_lvl: (N, 2) int32 level coordinates (y, x); flow: (N, 2) f32 at this
-    level's scale; ok: (N,) bool. Returns (flow, ok).
+    level's scale; ok: (N,) bool. Returns (flow, ok). With a leading batch
+    ((B, N, ...) and a batched level), one call a sequence, stacked.
     """
+    if p_lvl.dim() == 3:
+        return _per_sequence(lk_level_plain, d1, d2, p_lvl, flow, ok,
+                             hw=hw, window=window, iters=iters, eps=eps,
+                             eig_thresh=eig_thresh, pad=pad,
+                             min_active=min_active, escape_fail=escape_fail)
     H, W = hw
     w = window
     T = 2 * w + 1
@@ -202,19 +216,33 @@ def lk_level_plain(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
     return flow, ok
 
 
+def _per_sequence(level_fn, d1, d2, p_lvl, flow, ok, **kw):
+    """A plain level over a leading batch: one call a sequence, stacked."""
+    outs = [level_fn({"stack": d1["stack"][b]}, {"img": d2["img"][b]},
+                     p_lvl[b], flow[b], ok[b], **kw)
+            for b in range(p_lvl.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
 def _check_level(d1, d2, p_lvl, flow, ok, hw, window, pad):
     stack, img = d1["stack"], d2["img"]
-    n = p_lvl.shape[0]
-    if stack.dim() != 3 or stack.shape[0] != 6 \
-            or tuple(img.shape) != tuple(stack.shape[1:]):
+    lead = tuple(p_lvl.shape[:-2])          # () or (B,)
+    if p_lvl.dim() not in (2, 3) or stack.dim() != 3 + len(lead) \
+            or tuple(stack.shape[:-3]) != lead or stack.shape[-3] != 6 \
+            or tuple(img.shape) != lead + tuple(stack.shape[-2:]):
         raise ValueError(
-            f"lk_level: stack (6, Hp, Wp) and img (Hp, Wp) expected, got "
-            f"{tuple(stack.shape)} and {tuple(img.shape)}")
-    if tuple(p_lvl.shape) != (n, 2) or tuple(flow.shape) != (n, 2) \
-            or tuple(ok.shape) != (n,):
+            f"lk_level: stack ([B,] 6, Hp, Wp) and img ([B,] Hp, Wp) with "
+            f"the points' batch expected, got {tuple(stack.shape)} and "
+            f"{tuple(img.shape)} for p_lvl {tuple(p_lvl.shape)}")
+    n = p_lvl.shape[-2]
+    if tuple(p_lvl.shape) != lead + (n, 2) \
+            or tuple(flow.shape) != lead + (n, 2) \
+            or tuple(ok.shape) != lead + (n,):
         raise ValueError(
-            f"lk_level: p_lvl (N, 2), flow (N, 2), ok (N,) expected, got "
-            f"{tuple(p_lvl.shape)}, {tuple(flow.shape)}, {tuple(ok.shape)}")
+            f"lk_level: p_lvl ([B,] N, 2), flow ([B,] N, 2), ok ([B,] N) "
+            f"expected, got {tuple(p_lvl.shape)}, {tuple(flow.shape)}, "
+            f"{tuple(ok.shape)}")
     if stack.dtype != torch.float32 or img.dtype != torch.float32 \
             or flow.dtype != torch.float32 or p_lvl.dtype != torch.int32 \
             or ok.dtype != torch.bool:
@@ -225,7 +253,7 @@ def _check_level(d1, d2, p_lvl, flow, ok, hw, window, pad):
     if not (stack.device == img.device == p_lvl.device == flow.device
             == ok.device):
         raise ValueError("lk_level: inputs on different devices")
-    hp, wp = stack.shape[1:]
+    hp, wp = stack.shape[-2:]
     t = 2 * window + 1
     if tuple(hw) != (hp - 2 * pad, wp - 2 * pad) \
             or not t + 1 + 2 * LK_PATCH_MARGIN <= min(hp, wp):
@@ -239,33 +267,40 @@ def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
                   escape_fail: bool = False, return_counts: bool = False,
                   one_d: bool = False):
     """Launch the level kernel, in its 1-D mode with one_d (no checks
-    beyond the wrapper's). With return_counts, also the stop rule's
-    running counts before each iteration, counts (iters + 1,) int32
-    (counts[0]: the points alive after the gate), and K, the iterations the
-    level ran (0-d int32), both on the device (see lk_level.cu)."""
+    beyond the wrapper's): one launch for N points, or for B sequences of
+    N points each with (B, ...) inputs. With return_counts, also each
+    sequence's stop-rule running counts before each iteration, counts
+    ([B,] iters + 1) int32 (counts[..., 0]: the points alive after the
+    gate), and K, the iterations the level ran ([B] int32), both on the
+    device (see lk_level.cu)."""
     stack, img = d1["stack"], d2["img"]
-    n = p_lvl.shape[0]
+    batched = p_lvl.dim() == 3
+    bsz = p_lvl.shape[0] if batched else 1
+    n = p_lvl.shape[-2]
     iters = int(iters)
     dev = flow.device
     flow_out = torch.empty_like(flow)
     ok_out = torch.empty_like(ok)
-    # Per-point flow after each iteration and iterations run; the zeroed
-    # words hold the histogram and the ticket, then the kernel's counts
-    # and K.
-    hist = torch.empty((iters + 1) * n * 2, dtype=torch.float32, device=dev)
-    steps = torch.empty(n, dtype=torch.int32, device=dev)
-    sync = torch.zeros(2 * iters + 5, dtype=torch.int32, device=dev)
-    if n:
+    # Per-point flow after each iteration and iterations run; each
+    # sequence's zeroed words hold its histogram and ticket, then the
+    # kernel's counts and K (one memset for the batch).
+    hist = torch.empty(bsz * (iters + 1) * n * 2, dtype=torch.float32,
+                       device=dev)
+    steps = torch.empty(bsz * n, dtype=torch.int32, device=dev)
+    sync = torch.zeros((bsz, 2 * iters + 5), dtype=torch.int32, device=dev)
+    if n and bsz:
         lib = kernels.library()
         h, w = hw
         code = lib.slamtpu_lk_level(
             stack.data_ptr(), img.data_ptr(), p_lvl.data_ptr(),
             flow.data_ptr(), ok.data_ptr(), flow_out.data_ptr(),
             ok_out.data_ptr(), hist.data_ptr(), steps.data_ptr(),
-            sync.data_ptr(), stack.shape[1], stack.shape[2], n, int(h),
-            int(w), int(window), iters, int(pad), int(min_active),
-            int(bool(escape_fail)), int(bool(one_d)), float(eps),
-            float(eig_thresh), kernels.stream_ptr(dev),
+            sync.data_ptr(), bsz, stack.stride(0) if batched else 0,
+            img.stride(0) if batched else 0, stack.shape[-2],
+            stack.shape[-1], n, int(h), int(w), int(window), iters,
+            int(pad), int(min_active), int(bool(escape_fail)),
+            int(bool(one_d)), float(eps), float(eig_thresh),
+            kernels.stream_ptr(dev),
         )
         kernels.check(code, "slamtpu_lk_level")
         if one_d:
@@ -273,9 +308,23 @@ def lk_level_cuda(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
         else:
             kernels.count_launch(lk_level)
     if return_counts:
-        return flow_out, ok_out, sync[iters + 3:2 * iters + 4], \
-            sync[2 * iters + 4]
+        counts, k = sync[:, iters + 3:2 * iters + 4], sync[:, 2 * iters + 4]
+        if not batched:
+            counts, k = counts[0], k[0]
+        return flow_out, ok_out, counts, k
     return flow_out, ok_out
+
+
+def _planes_contiguous(x, dims: int) -> bool:
+    """Whether x's last `dims` axes are laid out contiguously (its batch
+    axis may have any stride)."""
+    expect = 1
+    for size, stride in zip(reversed(x.shape[-dims:]),
+                            reversed(x.stride()[-dims:])):
+        if size > 1 and stride != expect:
+            return False
+        expect *= size
+    return True
 
 
 def _route_level(d1, d2, p_lvl, flow, ok, hw, window, pad) -> str:
@@ -286,9 +335,14 @@ def _route_level(d1, d2, p_lvl, flow, ok, hw, window, pad) -> str:
         return "cpu"
     if flow.device.type != "cuda":
         raise RuntimeError(f"lk_level: unsupported device {flow.device}")
-    if not all(x.is_contiguous() for x in (d1["stack"], d2["img"], p_lvl,
-                                           flow, ok)):
-        raise ValueError("lk_level: inputs must be contiguous")
+    if not (all(x.is_contiguous() for x in (p_lvl, flow, ok))
+            and _planes_contiguous(d1["stack"], 3)
+            and _planes_contiguous(d2["img"], 2)):
+        raise ValueError("lk_level: inputs must be contiguous (a batched "
+                         "stack and image in each sequence's planes)")
+    if p_lvl.dim() == 3 and p_lvl.shape[0] > 65535:
+        raise ValueError(f"lk_level: at most 65535 sequences a launch, got "
+                         f"{p_lvl.shape[0]}")
     if window > LK_KERNEL_MAX_WINDOW:
         raise ValueError(f"lk_level: the level kernel takes windows up to "
                          f"{LK_KERNEL_MAX_WINDOW}, got {window}")
@@ -297,8 +351,9 @@ def _route_level(d1, d2, p_lvl, flow, ok, hw, window, pad) -> str:
 
 def lk_level(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
              eig_thresh, pad, min_active: int = 0, escape_fail: bool = False):
-    """One pyramid level for all N points -> (flow, ok). CPU tensors take
-    lk_level_plain; CUDA tensors launch the level kernel or raise."""
+    """One pyramid level for all N points ([B,] N, ...) -> (flow, ok). CPU
+    tensors take lk_level_plain; CUDA tensors launch the level kernel once
+    (for the whole batch) or raise."""
     kw = dict(hw=hw, window=window, iters=iters, eps=eps,
               eig_thresh=eig_thresh, pad=pad, min_active=min_active,
               escape_fail=escape_fail)
@@ -323,8 +378,13 @@ def lk_level_1d_plain(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
     level. No hand-written kernel runs in it, on any device.
 
     p_lvl: (N, 2) int32 (y, x); flow: (N, 2) f32; ok: (N,) bool. Returns
-    (flow with flow_y = 0, ok).
+    (flow with flow_y = 0, ok). With a leading batch, one call a sequence.
     """
+    if p_lvl.dim() == 3:
+        return _per_sequence(lk_level_1d_plain, d1, d2, p_lvl, flow, ok,
+                             hw=hw, window=window, iters=iters, eps=eps,
+                             eig_thresh=eig_thresh, pad=pad,
+                             min_active=min_active, escape_fail=escape_fail)
     H, W = hw
     w = window
     T = 2 * w + 1
@@ -418,9 +478,9 @@ def lk_level_1d_plain(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
 def lk_level_1d(d1, d2, p_lvl, flow, ok, *, hw, window, iters, eps,
                 eig_thresh, pad, min_active: int = 0,
                 escape_fail: bool = False):
-    """One disparity-only pyramid level for all N points -> (flow, ok).
-    CPU tensors take lk_level_1d_plain; CUDA tensors launch the level
-    kernel's 1-D mode or raise."""
+    """One disparity-only pyramid level for all N points ([B,] N, ...) ->
+    (flow, ok). CPU tensors take lk_level_1d_plain; CUDA tensors launch the
+    level kernel's 1-D mode once or raise."""
     kw = dict(hw=hw, window=window, iters=iters, eps=eps,
               eig_thresh=eig_thresh, pad=pad, min_active=min_active,
               escape_fail=escape_fail)
@@ -439,9 +499,10 @@ def lk_flow(pyr1, pyr2, points, displacement, valid, *, levels, window,
             escape_fail: bool = False, one_d: bool = False):
     """Pyramidal LK for N points (reference lucas_kanade.jl:9-100).
 
-    points: (N, 2) f32 full-resolution (y, x); displacement: (N, 2) prior
-    in COARSEST-level units; one_d selects the disparity-only level.
-    Returns (flow at level-0 scale, status).
+    points: ([B,] N, 2) f32 full-resolution (y, x), with a pyramid of the
+    same batch; displacement: ([B,] N, 2) prior in COARSEST-level units;
+    one_d selects the disparity-only level. Returns (flow at level-0 scale,
+    status).
     """
     level_fn = lk_level_1d if one_d else lk_level
     flow = displacement.to(torch.float32)
@@ -468,7 +529,7 @@ def fb_track(pyr_prev, pyr_cur, points, displacement, valid, *, levels,
     backward at level 0 only (tracker.jl:34), keeping points whose round trip
     lands within `max_distance` of the original.
 
-    Returns (new_points (N, 2), status (N,)).
+    Returns (new_points ([B,] N, 2), status ([B,] N)).
     """
     kw = dict(window=window, iters=iters, eps=eps, eig_thresh=eig_thresh,
               pad=pad, min_active=min_active)
@@ -499,6 +560,9 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
     it, so that the lanes go to the first RETRY_CAP failed priors of the
     whole set (parallel/multi.py); None for a whole set.
 
+    Batched ((B, N, ...) points with batched pyramids): each sequence has
+    its own RETRY_CAP lanes, and `retry_base` maps the (B,) counts to (B,).
+
     Returns (new_px, ok, tracked_with_prior).
     """
     level_fn = lk_level_1d if one_d else lk_level
@@ -510,7 +574,7 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
         ok = active0
         for level in range(levels, -1, -1):
             if inject_mask is not None and level == prior_level:
-                flow = torch.where((inject_mask & ~active0)[:, None],
+                flow = torch.where((inject_mask & ~active0)[..., None],
                                    inject_disp, flow)
                 ok = ok | inject_mask
             d1, d2 = pyr_prev[level], pyr_cur[level]
@@ -536,25 +600,31 @@ def fb_retry_compact(pyr_prev, pyr_cur, px, prior_mask, disp_prior, valid,
     flow_m, ok_m = cascade(px, plain, prior, disp_prior)
     okfb_m = backward(px, flow_m, ok_m)
 
-    # Compact the failed priors into RETRY_CAP lanes; every other row
-    # scatters into the dump row RETRY_CAP, which is dropped.
+    # Compact each sequence's failed priors into its RETRY_CAP lanes; every
+    # other row scatters into the dump row RETRY_CAP, which is dropped.
     retry_mask = prior & ~okfb_m
-    rank = torch.cumsum(retry_mask.to(torch.int64), 0) - retry_mask.long()
+    rank = torch.cumsum(retry_mask.to(torch.int64), -1) - retry_mask.long()
     if retry_base is not None:
-        rank = rank + retry_base(retry_mask.sum())
+        rank = rank + retry_base(retry_mask.sum(-1))[..., None]
     in_cap = retry_mask & (rank < RETRY_CAP)
     slot = torch.where(in_cap, rank, torch.full_like(rank, RETRY_CAP))
-    px_r = torch.zeros((RETRY_CAP + 1, 2), dtype=px.dtype, device=px.device)
-    px_r[slot] = px
-    valid_r = torch.zeros(RETRY_CAP + 1, dtype=torch.bool, device=px.device)
-    valid_r[slot] = in_cap
-    px_r, valid_r = px_r[:RETRY_CAP], valid_r[:RETRY_CAP]
+    lead = tuple(px.shape[:-2])
+    seq = () if not lead else \
+        (torch.arange(lead[0], device=px.device)[:, None],)
+    px_r = torch.zeros(lead + (RETRY_CAP + 1, 2), dtype=px.dtype,
+                       device=px.device)
+    px_r[seq + (slot,)] = px
+    valid_r = torch.zeros(lead + (RETRY_CAP + 1,), dtype=torch.bool,
+                          device=px.device)
+    valid_r[seq + (slot,)] = in_cap
+    px_r = px_r[..., :RETRY_CAP, :].contiguous()
+    valid_r = valid_r[..., :RETRY_CAP].contiguous()
     flow_r, ok_r = cascade(px_r, valid_r, None, None)
     okfb_r = backward(px_r, flow_r, ok_r)
 
-    gather_idx = torch.clamp(rank, 0, RETRY_CAP - 1)
-    use_retry = in_cap & okfb_r[gather_idx]
-    new_px = torch.where(use_retry[:, None], px + flow_r[gather_idx],
+    lanes = seq + (torch.clamp(rank, 0, RETRY_CAP - 1),)
+    use_retry = in_cap & okfb_r[lanes]
+    new_px = torch.where(use_retry[..., None], px + flow_r[lanes],
                          px + flow_m)
     ok = (okfb_m | use_retry) & valid
     return new_px, ok, prior & okfb_m

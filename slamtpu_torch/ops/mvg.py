@@ -20,6 +20,7 @@ import torch
 
 from .. import random as trandom
 from .fivepoint import five_point_candidates
+from .se3 import rt_to_4x4
 from .smallalg import polar_rotation3x3, smallest_eigvec_psd
 
 
@@ -191,8 +192,6 @@ def essential_ransac(pd_prev, pd_cur, px_prev, px_cur, valid, n, intrinsics,
           + cand_t[:, None, :])[..., 2]
     votes = torch.sum((z1 > 0) & (z2 > 0) & inliers[None, :], dim=1)
     k = torch.argmax(votes)
-    pose = torch.eye(4, dtype=f32, device=dev)
-    pose[:3, :3] = cand_R[k]
-    pose[:3, 3] = cand_t[k]
+    pose = rt_to_4x4(cand_R[k], cand_t[k])
     return {"E": E_best, "pose": pose, "inliers": inliers,
             "n_inliers": n_inliers}

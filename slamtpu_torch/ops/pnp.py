@@ -13,7 +13,7 @@ import math
 import torch
 
 from .mvg import sample_valid_indices
-from .se3 import rot_zyx
+from .se3 import rot_zyx, rt_to_4x4
 from .smallalg import solve_psd
 
 
@@ -192,9 +192,7 @@ def p3p_ransac(points3d, pixels_xy, bearings, valid, n, intrinsics, key, *,
     avg_error = torch.sum(torch.where(inliers, err[best],
                                       torch.zeros_like(err[best]))) \
         / torch.clamp(n_inl, min=1)
-    cw = torch.eye(4, dtype=torch.float32, device=points3d.device)
-    cw[:3, :3] = Rf[best]
-    cw[:3, 3] = tf[best]
+    cw = rt_to_4x4(Rf[best], tf[best])
     return {"cw": cw, "inliers": inliers, "n_inliers": n_inl,
             "avg_error": avg_error}
 

@@ -87,7 +87,7 @@ def solve_psd(A, b, eps: float = 1e-12):
         d = torch.sqrt(torch.clamp(s[..., j], min=eps))
         col = torch.where(idx >= j, s / d[..., None], torch.zeros_like(s))
         L[..., :, j] = col
-    y = torch.zeros(A.shape[:-1], dtype=A.dtype, device=A.device)
+    y = torch.zeros_like(A[..., 0])     # batched with A under vmap
     for i in range(k):
         yi = (b[..., i] - torch.einsum("...m,...m->...", L[..., i, :], y)) \
             / L[..., i, i]

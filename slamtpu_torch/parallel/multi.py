@@ -6,8 +6,14 @@ Port of slamtpu/parallel/multi.py, same names and argument order. The
 layout is the JAX package's:
 
   - mesh axis "data": independent sequences (a batch of SLAM sessions), no
-    cross-talk. Each rank runs its B / d sequences one after another (the
-    hand-written kernels take one sequence a launch);
+    cross-talk. Each rank runs its B / d sequences as ONE batched program,
+    as the JAX package's jit(vmap(...)) does: the pyramids are built once
+    over the batch, each LK level is one launch of the level kernel for
+    all of them (each sequence with its own stop rule), the geometry is
+    `torch.func.vmap` of the per-sequence code, and the GN normal
+    equations of all of them travel in one all_reduce. On the card the
+    number of launches a step makes does not depend on B (the plain level
+    of a CPU tensor runs one sequence after another);
   - mesh axis "model": the keypoint axis of each sequence is sharded N / m
     (images replicated within a model group). The LK windowed gathers are
     local to the shard, and a sum over keypoints is this rank's partial
@@ -26,8 +32,9 @@ CPU tensor their plain versions.
 (essential and P3P RANSAC, PnP, parallax) on the gathered keypoint set,
 replicated on every rank of the model group. This is the port's own
 design, not a copy of XLA's partitioning: the RANSAC samples are drawn over
-the whole compacted keypoint set through the threefry twin, which keeps
-them equal to the JAX package's.
+the whole compacted keypoint set through the threefry twin (keys as a
+(B, 2) tensor, sequence b's draws those of key b alone), which keeps them
+equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -40,7 +47,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import random as trandom
 from ..ops.image import build_lk_pyramid, lk_pyramid_impl
 from ..ops.lucas_kanade import fb_cascade, fb_track, lk_pad
 from ..ops.se3 import rot_zyx
@@ -110,17 +116,34 @@ def _all_gather(t, group, dim: int = 0):
 
 
 def _on(x, dev, dtype=None):
-    return torch.as_tensor(x, dtype=dtype, device=dev)
+    """x as a contiguous tensor on dev (a shard of a host array may not
+    be)."""
+    return torch.as_tensor(x, dtype=dtype, device=dev).contiguous()
 
 
 def _pose_gauss_newton(theta, points3d, pixels_yx, weights, intrinsics,
                        reduce=None):
-    """One GN step on the 6-DoF pose from weighted reprojection residuals.
+    """One GN step on the 6-DoF pose of each of B sequences from weighted
+    reprojection residuals: theta (B, 6), points3d (B, N, 3), pixels_yx
+    (B, N, 2), weights (B, N) -> (theta (B, 6), cost (B,)).
 
     With `reduce` (the model group's all_reduce), the normal equations and
-    the cost are this shard's partials, summed over the shards before the
-    solve; every rank of the group then solves the same system.
+    the costs are this shard's partials, (B, 43) summed over the shards in
+    one all_reduce before the solve; every rank of the group then solves
+    the same systems.
     """
+    sums = torch.func.vmap(_normal_equations, in_dims=(0, 0, 0, 0, None))(
+        theta, points3d, pixels_yx, weights, intrinsics)
+    if reduce is not None:
+        sums = reduce(sums)
+    H = sums[:, :36].reshape(-1, 6, 6) + 1e-6 * torch.eye(
+        6, dtype=theta.dtype, device=theta.device)
+    return theta - solve_psd(H, sums[:, 36:42]), sums[:, 42]
+
+
+def _normal_equations(theta, points3d, pixels_yx, weights, intrinsics):
+    """One sequence's GN normal equations and cost, (43,): J^T J (36),
+    J^T r (6), r^T r."""
     def resid(th, pt, px):
         R = rot_zyx(th[:3])
         pc = R @ pt + th[3:]
@@ -138,18 +161,14 @@ def _pose_gauss_newton(theta, points3d, pixels_yx, weights, intrinsics,
     w = weights[:, None]
     r = r * w
     J = J * w[:, :, None]
-    sums = torch.cat([torch.einsum("nia,nib->ab", J, J).reshape(36),
+    return torch.cat([torch.einsum("nia,nib->ab", J, J).reshape(36),
                       torch.einsum("nia,ni->a", J, r),
                       torch.sum(r * r)[None]])
-    if reduce is not None:
-        sums = reduce(sums)
-    H = sums[:36].reshape(6, 6) + 1e-6 * torch.eye(
-        6, dtype=theta.dtype, device=theta.device)
-    return theta - solve_psd(H, sums[36:42]), sums[42]
 
 
-def _one_sequence(img_prev, img_cur, points, points3d, theta, valid,
-                  intrinsics, *, levels, window, reduce=None):
+def _sequences(img_prev, img_cur, points, points3d, theta, valid,
+               intrinsics, *, levels, window, reduce=None):
+    """multi_sequence_step's program on a rank's batch of sequences."""
     pad = lk_pad(window)
     pyr_prev = build_lk_pyramid(img_prev, levels=levels, pad=pad)
     pyr_cur = build_lk_pyramid(img_cur, levels=levels, pad=pad)
@@ -167,7 +186,7 @@ def multi_sequence_step(mesh, *, levels: int = 2, window: int = 5):
     """The sharded step: (img_prev (B, H, W), img_cur, points (B, N, 2),
     points3d (B, N, 3), theta (B, 6), valid (B, N), intrinsics (4,)) ->
     (new_points (B, N, 2), ok (B, N), new_theta (B, 6), cost (B,)), B over
-    "data" and N over "model"."""
+    "data" and N over "model"; a rank's B / d sequences run as one batch."""
     dev = _device(mesh)
     di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
     d, m = mesh.size(0), mesh.size(1)
@@ -178,16 +197,12 @@ def multi_sequence_step(mesh, *, levels: int = 2, window: int = 5):
         B, N = points.shape[:2]
         bs, ks = _shard(B, d, di), _shard(N, m, mi)
         f32 = torch.float32
-        intr = _on(intrinsics, dev, f32)
-        outs = [
-            _one_sequence(
-                _on(img_prev[b], dev, f32), _on(img_cur[b], dev, f32),
-                _on(points[b, ks], dev, f32), _on(points3d[b, ks], dev, f32),
-                _on(theta[b], dev, f32), _on(valid[b, ks], dev, torch.bool),
-                intr, levels=levels, window=window, reduce=reduce)
-            for b in range(bs.start, bs.stop)
-        ]
-        new_points, ok, new_theta, cost = (torch.stack(x) for x in zip(*outs))
+        new_points, ok, new_theta, cost = _sequences(
+            _on(img_prev[bs], dev, f32), _on(img_cur[bs], dev, f32),
+            _on(points[bs, ks], dev, f32), _on(points3d[bs, ks], dev, f32),
+            _on(theta[bs], dev, f32), _on(valid[bs, ks], dev, torch.bool),
+            _on(intrinsics, dev, f32), levels=levels, window=window,
+            reduce=reduce)
         return (_all_gather(_all_gather(new_points, g_model, 1), g_data),
                 _all_gather(_all_gather(ok, g_model, 1), g_data),
                 _all_gather(new_theta, g_data),
@@ -203,19 +218,23 @@ def frontend_mesh_step(mesh, *, levels: int = 2, window: int = 5,
     KLT + epipolar filter + P3P + PnP), batched over sequences on "data"
     with the keypoint axis sharded on "model".
 
-    The LK cascade runs on the rank's keypoint shard. It is exact: with
+    A rank's B / d sequences run as one batch: one batched pyramid a
+    frame, one batched LK cascade (each level one launch for all of them),
+    and the geometry vmapped over them (frontend_geometry_batched). The LK
+    cascade runs on the rank's keypoint shard. It is exact: with
     min_active = 0 no stop rule couples the keypoints, and the shards'
-    counts of failed priors, all_gathered over "model", give the retry
-    lanes to the first RETRY_CAP failed priors of the whole set. (new_px,
-    ok, tracked_with_prior) are all_gathered over "model" and the geometry
-    runs on the whole set, the same on every rank of the group.
+    counts of failed priors, all_gathered over "model", give each
+    sequence's retry lanes to the first RETRY_CAP failed priors of its
+    whole set. (new_px, ok, tracked_with_prior) are all_gathered over
+    "model" and the geometry runs on the whole set, the same on every rank
+    of the group.
 
     step(img_prev, img_cur, px, valid, prior, disp, mp_pos, has_mp,
     prev_und_xy, prev_bear_xy, has_join, R_comp, theta_pred, intrinsics,
     dist, key) -> (new_px, ok, ess_outlier, p3p_inliers, pnp_theta,
     median_parallax, p3p_n_inliers int32); `key` (B, 2) raw threefry keys.
     """
-    from ..ops.frontend_step import frontend_geometry
+    from ..ops.frontend_step import frontend_geometry_batched
 
     dev = _device(mesh)
     pad = lk_pad(window)
@@ -224,29 +243,8 @@ def frontend_mesh_step(mesh, *, levels: int = 2, window: int = 5,
     g_data, g_model = mesh.get_group("data"), mesh.get_group("model")
 
     def retry_base(n_failed):
-        return _all_gather(n_failed.reshape(1), g_model)[:mi].sum()
-
-    def one_seq(img_prev, img_cur, px, valid, prior, disp, mp_pos, has_mp,
-                prev_und_xy, prev_bear_xy, has_join, R_comp, theta_pred,
-                intrinsics, dist_, key, ks):
-        pyr1 = lk_pyramid_impl(img_prev, levels=levels, pad=pad)
-        pyr2 = lk_pyramid_impl(img_cur, levels=levels, pad=pad)
-        new_px, ok, with_prior = (
-            _all_gather(x, g_model) for x in fb_cascade(
-                pyr1, pyr2, px[ks], prior[ks], disp[ks], valid[ks],
-                levels=levels, prior_level=1, window=window, pad=pad,
-                max_distance=1.0, min_active=0, retry_base=retry_base))
-        n = px.shape[0]
-        res = frontend_geometry(
-            new_px, ok, with_prior, mp_pos, has_mp,
-            torch.arange(n, device=px.device), has_join & valid,
-            prev_und_xy, prev_bear_xy, R_comp, theta_pred, intrinsics,
-            dist_, key, essential_hypotheses=essential_hypotheses,
-            pnp_hypotheses=pnp_hypotheses)
-        return (res["new_px"], res["ok"], res["ess_outlier"],
-                res["p3p_inliers"], res["pnp_theta"],
-                res["median_parallax"],
-                res["p3p_n_inliers"].to(torch.int32))
+        """(b,) failed priors of this shard -> (b,) in the shards before."""
+        return _all_gather(n_failed[None], g_model)[:mi].sum(0)
 
     def step(img_prev, img_cur, px, valid, prior, disp, mp_pos, has_mp,
              prev_und_xy, prev_bear_xy, has_join, R_comp, theta_pred,
@@ -254,20 +252,34 @@ def frontend_mesh_step(mesh, *, levels: int = 2, window: int = 5,
         B, N = px.shape[:2]
         bs, ks = _shard(B, d, di), _shard(N, m, mi)
         f32, b8 = torch.float32, torch.bool
-        keys = np.asarray(key.cpu() if torch.is_tensor(key) else key)
-        intr, dst = _on(intrinsics, dev, f32), _on(dist_, dev, f32)
-        outs = []
-        for b in range(bs.start, bs.stop):
-            outs.append(one_seq(
-                _on(img_prev[b], dev, f32), _on(img_cur[b], dev, f32),
-                _on(px[b], dev, f32), _on(valid[b], dev, b8),
-                _on(prior[b], dev, b8), _on(disp[b], dev, f32),
-                _on(mp_pos[b], dev, f32), _on(has_mp[b], dev, b8),
-                _on(prev_und_xy[b], dev, f32), _on(prev_bear_xy[b], dev, f32),
-                _on(has_join[b], dev, b8), _on(R_comp[b], dev, f32),
-                _on(theta_pred[b], dev, f32), intr, dst,
-                trandom.as_key(keys[b]), ks))
-        return tuple(_all_gather(torch.stack(x), g_data) for x in zip(*outs))
+        valid_ = _on(valid[bs], dev, b8)
+        keys = (key[bs].to(device=dev, dtype=torch.int64)
+                if torch.is_tensor(key)
+                else _on(np.asarray(key)[bs].astype(np.int64), dev))
+        pyr1 = lk_pyramid_impl(_on(img_prev[bs], dev, f32), levels=levels,
+                               pad=pad)
+        pyr2 = lk_pyramid_impl(_on(img_cur[bs], dev, f32), levels=levels,
+                               pad=pad)
+        new_px, ok, with_prior = (
+            _all_gather(x, g_model, 1) for x in fb_cascade(
+                pyr1, pyr2, _on(px[bs, ks], dev, f32),
+                _on(prior[bs, ks], dev, b8), _on(disp[bs, ks], dev, f32),
+                _on(valid[bs, ks], dev, b8), levels=levels, prior_level=1,
+                window=window, pad=pad, max_distance=1.0, min_active=0,
+                retry_base=retry_base))
+        res = frontend_geometry_batched(
+            new_px, ok, with_prior, _on(mp_pos[bs], dev, f32),
+            _on(has_mp[bs], dev, b8), torch.arange(N, device=dev),
+            _on(has_join[bs], dev, b8) & valid_,
+            _on(prev_und_xy[bs], dev, f32), _on(prev_bear_xy[bs], dev, f32),
+            _on(R_comp[bs], dev, f32), _on(theta_pred[bs], dev, f32),
+            _on(intrinsics, dev, f32), _on(dist_, dev, f32), keys,
+            essential_hypotheses=essential_hypotheses,
+            pnp_hypotheses=pnp_hypotheses)
+        outs = (res["new_px"], res["ok"], res["ess_outlier"],
+                res["p3p_inliers"], res["pnp_theta"],
+                res["median_parallax"], res["p3p_n_inliers"].to(torch.int32))
+        return tuple(_all_gather(x, g_data) for x in outs)
 
     return step
 

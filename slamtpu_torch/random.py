@@ -16,9 +16,14 @@ trajectory — this module twins jax 0.9's default generator:
     (jax/_src/random.py);
   - `fold_in` (threefry of the counter pair (0, data)).
 
-A key is a pair of Python ints (k1, k2), each in [0, 2^32). The uint32
-arithmetic runs in int64 with explicit 32-bit masking, on the device of the
-output tensor; the same code runs on Python ints for scalar key work.
+A key is a pair of Python ints (k1, k2), each in [0, 2^32), or a tensor
+of keys (..., 2) (integers holding uint32 values): a leading batch of keys,
+one a sequence, whose results stack along the same leading axes, key b's
+equal to those of key b alone (what `jax.vmap` over the keys gives). The
+tensor form also runs under `torch.func.vmap`, where a key is one (2,)
+slice. The uint32 arithmetic runs in int64 with explicit 32-bit masking,
+on the device of the output tensor; the same code runs on Python ints for
+scalar key work.
 """
 from __future__ import annotations
 
@@ -38,6 +43,15 @@ def as_key(key) -> tuple:
     return k1 & _MASK, k2 & _MASK
 
 
+def _key_words(key):
+    """(k1, k2): Python ints for a pair or an array; int64 tensors of the
+    leading shape for a tensor of keys (..., 2)."""
+    if torch.is_tensor(key):
+        key = key.to(torch.int64) & _MASK
+        return key[..., 0], key[..., 1]
+    return as_key(key)
+
+
 def _rotl(x, r: int):
     return ((x << r) | (x >> (32 - r))) & _MASK
 
@@ -52,10 +66,11 @@ def _rounds(x0, x1, rots):
 def threefry2x32(key, x0, x1):
     """Threefry-2x32 hash of the counter pair (x0, x1) under `key`.
 
-    x0, x1: int64 tensors (or Python ints) holding uint32 values.
+    x0, x1: int64 tensors (or Python ints) holding uint32 values; with a
+    tensor of keys (..., 2), they broadcast against its leading shape.
     Returns the two uint32 output words, same type as the inputs.
     """
-    k1, k2 = as_key(key)
+    k1, k2 = _key_words(key)
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -66,31 +81,47 @@ def threefry2x32(key, x0, x1):
     return x0, x1
 
 
-def fold_in(key, data: int) -> tuple:
-    """jax.random.fold_in for a raw threefry key and a uint32 scalar."""
-    return threefry2x32(key, 0, int(data) & _MASK)
+def fold_in(key, data: int):
+    """jax.random.fold_in for a raw threefry key and a uint32 scalar: a
+    pair of ints, or for a tensor of keys (..., 2) a tensor (..., 2)."""
+    x0, x1 = threefry2x32(key, 0, int(data) & _MASK)
+    if torch.is_tensor(key):
+        return torch.stack([x0, x1], dim=-1)
+    return x0, x1
 
 
 def random_bits(key, shape, device) -> torch.Tensor:
-    """32 random bits per element, as an int64 tensor of `shape`."""
+    """32 random bits per element, as an int64 tensor of `shape` (of
+    lead + shape for a tensor of keys (*lead, 2))."""
     n = math.prod(shape)
     count = torch.arange(n, dtype=torch.int64, device=device)
+    lead = ()
+    if torch.is_tensor(key):
+        lead = tuple(key.shape[:-1])
+        key = key.reshape(lead + (1, 2))    # each key over the counter
     hi, lo = threefry2x32(key, count >> 32, count & _MASK)
-    return (hi ^ lo).reshape(shape)
+    return (hi ^ lo).reshape(lead + tuple(shape))
 
 
 def uniform(key, shape, device, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """jax.random.uniform(key, shape, float32, minval, maxval)."""
+    """jax.random.uniform(key, shape, float32, minval, maxval) (of lead +
+    shape for a tensor of keys (*lead, 2)). Bit-equal on [0, 1) and on
+    gumbel's [tiny, 1), where the affine map is exact; on other ranges XLA
+    on the CPU fuses it into a multiply-add, and the two can differ by an
+    ulp."""
     bits = random_bits(key, shape, device)
-    float_bits = (bits >> 9) | 0x3F800000
-    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    # jax: bitcast((bits >> 9) | 0x3F800000) - 1 = (bits >> 9) * 2^-23,
+    # exactly (a 23-bit integer); computed so, since vmap has no batching
+    # rule for a dtype view.
+    floats = (bits >> 9).to(torch.float32) * (2.0 ** -23)
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
 def gumbel(key, shape, device) -> torch.Tensor:
-    """jax.random.gumbel(key, shape, float32) in the default "low" mode."""
+    """jax.random.gumbel(key, shape, float32) in the default "low" mode
+    (of lead + shape for a tensor of keys (*lead, 2))."""
     u = uniform(key, shape, device, minval=_F32_TINY, maxval=1.0)
     return -torch.log(-torch.log(u))

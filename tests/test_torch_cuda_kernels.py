@@ -807,3 +807,180 @@ def test_offload_second_stream_waits_for_the_tracking_stream(monkeypatch):
                                        inputs=inputs, hypotheses=256)
     assert info["kf_device"] != info["track_device"]
     assert info["n_new"] > 0
+
+
+# -- the level kernel's batch axis (the multi-device steps) -----------------
+
+BATCH = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_pyramids(stereo):
+    """Batched port pyramids of BATCH city-scene frame pairs: frames (b,
+    b + 1) (left), or with `stereo` the left and right images of frame b."""
+    scene = make_scene(n_frames=BATCH + 1, height=376, width=1241,
+                       n_points=6000, stereo=True, baseline=0.54, seed=7,
+                       layout="city")
+    frames = [scene.frame(i) for i in range(BATCH + 1)]
+    if stereo:
+        pairs = [(frames[b][0], frames[b][1]) for b in range(BATCH)]
+    else:
+        pairs = [(frames[b][0], frames[b + 1][0]) for b in range(BATCH)]
+    return tuple(lk_pyramid_impl(torch.from_numpy(np.stack(
+        [p[k] for p in pairs]).astype(np.float32)).cuda(), levels=3,
+        pad=PAD) for k in (0, 1))
+
+
+def _batched_level_inputs(level, one_d, seed):
+    """(BATCH, 1024) level inputs with different alive counts: 90%, 50%,
+    none and 10% of the points alive at entry."""
+    pyr1, pyr2 = _batched_pyramids(one_d)
+    d1, d2 = pyr1[level], pyr2[level]
+    rng = np.random.default_rng(seed)
+    n = 1024
+    px = np.stack([rng.uniform(0, 375, (BATCH, n)),
+                   rng.uniform(0, 1240, (BATCH, n))], -1)
+    p_lvl = np.floor(px / 2.0 ** level).astype(np.int32)
+    if one_d:
+        flow = np.stack([np.zeros((BATCH, n)),
+                         rng.normal(-6.0, 4.0, (BATCH, n)) / 2.0 ** level],
+                        -1)
+    else:
+        flow = rng.normal(0.0, 1.5, (BATCH, n, 2))
+    alive = np.array([0.9, 0.5, 0.0, 0.1])[:, None]
+    ok = rng.uniform(size=(BATCH, n)) < alive
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    return (d1, d2, t(p_lvl), t(flow.astype(np.float32)), t(ok),
+            pyramid_level_shape(d1, PAD))
+
+
+@pytest.mark.parametrize("one_d", [False, True])
+@pytest.mark.parametrize("level", [0, 3])
+@pytest.mark.parametrize("min_active", [0, 16])
+def test_batched_lk_level_equals_single_launches(one_d, level, min_active):
+    """One launch for BATCH sequences gives, bit for bit, the flows, ok
+    masks, stop-rule counts and K of BATCH single launches (each sequence
+    its own stop rule: the all-dead one keeps K = 0 and its inputs), and
+    agrees with the batched plain version: ok masks on >= 99.5% of the
+    points alive at entry, flows of the points ok in both within 1e-3 px
+    for >= 99% of them and within 2 * lk_epsilon for all."""
+    d1, d2, p_lvl, flow, ok, hw = _batched_level_inputs(level, one_d,
+                                                        seed=level + 7)
+    kw = dict(hw=hw, window=9, iters=30, eps=1e-2, eig_thresh=1e-4, pad=PAD,
+              min_active=min_active)
+    counter = lk.lk_level_1d if one_d else lk.lk_level
+    before = counter.launches
+    flow_b, ok_b, counts_b, k_b = lk.lk_level_cuda(
+        d1, d2, p_lvl, flow, ok, return_counts=True, one_d=one_d, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for b in range(BATCH):
+        one = lk.lk_level_cuda({"stack": d1["stack"][b]},
+                               {"img": d2["img"][b]}, p_lvl[b], flow[b],
+                               ok[b], return_counts=True, one_d=one_d, **kw)
+        for got, want in zip((flow_b[b], ok_b[b], counts_b[b], k_b[b]), one):
+            assert torch.equal(got, want), b
+    assert int(k_b[2]) == 0 and not ok_b[2].any()
+    assert torch.equal(flow_b[2, :, 1], flow[2, :, 1])
+    plain = lk.lk_level_1d_plain if one_d else lk.lk_level_plain
+    ref = plain(d1, d2, p_lvl, flow, ok, **kw)
+    for b in range(BATCH):
+        # Among the batch's ~2,500 live points a few steps straddle
+        # lk_epsilon, so a point stops one iteration apart (only the order
+        # of the window sums differs; at level 0 the global stop does not
+        # cut the loop short): test_lk_level_runs_past_the_old_cap's bound.
+        alive = ok[b].cpu().numpy()
+        ok_kn, ok_pn = ok_b[b].cpu().numpy(), ref[1][b].cpu().numpy()
+        assert not ok_kn[~alive].any()
+        if alive.any():
+            assert (ok_kn == ok_pn)[alive].mean() >= 0.995
+        both = ok_kn & ok_pn
+        d = np.abs(flow_b[b].cpu().numpy()[both]
+                   - ref[0][b].cpu().numpy()[both])
+        assert d.size == 0 or ((d <= 1e-3).all(-1).mean() >= 0.99
+                               and d.max() <= 2e-2), d.max()
+    routed = (lk.lk_level_1d if one_d else lk.lk_level)(d1, d2, p_lvl, flow,
+                                                        ok, **kw)
+    assert torch.equal(routed[0], flow_b) and torch.equal(routed[1], ok_b)
+
+
+@pytest.mark.parametrize("one_d", [False, True])
+def test_batched_fb_retry_compact_issues_no_host_sync(one_d):
+    """The batched cascade (BATCH sequences, each with its own retry lanes)
+    runs with synchronizing calls turned into errors, launches the level
+    kernel as often as one sequence's cascade, and gives each sequence's
+    bits alone."""
+    pyr1, pyr2 = _batched_pyramids(one_d)
+    rng = np.random.default_rng(4)
+    n = 1024
+    px = np.stack([rng.uniform(20, 356, (BATCH, n)),
+                   rng.uniform(40, 1221, (BATCH, n))], -1).astype(np.float32)
+    prior = rng.uniform(size=(BATCH, n)) < 0.5
+    prior[1] = True                     # more than RETRY_CAP failed priors
+    disp = rng.normal(0.0, 1.0, (BATCH, n, 2)).astype(np.float32)
+    disp[1] = 6.0
+    if one_d:
+        disp[..., 0] = 0.0
+    valid = rng.uniform(size=(BATCH, n)) < 0.95
+    args = [torch.from_numpy(a).cuda() for a in (px, prior, disp, valid)]
+    kw = dict(levels=3, prior_level=1, window=9, iters=30, eps=1e-2,
+              eig_thresh=1e-4, pad=PAD, max_distance=1.0, min_active=16,
+              one_d=one_d)
+    counter = lk.lk_level_1d if one_d else lk.lk_level
+    lk.fb_retry_compact(pyr1, pyr2, *args, **kw)   # build and warm up
+    torch.cuda.synchronize()
+    before = counter.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = lk.fb_retry_compact(pyr1, pyr2, *args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert counter.launches - before == 10  # 4 + 1 levels, twice
+    for b in range(BATCH):
+        one = lk.fb_retry_compact(
+            tuple({k: v[b] for k, v in lvl.items()} for lvl in pyr1),
+            tuple({k: v[b] for k, v in lvl.items()} for lvl in pyr2),
+            *(a[b] for a in args), **kw)
+        for got, want in zip(out, one):
+            assert torch.equal(got[b], want), b
+    assert int(out[1].sum()) > BATCH * n // 4
+
+
+def test_batched_lk_level_refuses_bad_inputs():
+    """No fallback on the card: a window past the kernel's largest, a
+    non-contiguous batched input or a batch that does not match raise."""
+    d1, d2, p_lvl, flow, ok, hw = _batched_level_inputs(0, False, seed=1)
+    kw = dict(hw=hw, window=9, iters=30, eps=1e-2, eig_thresh=1e-4, pad=PAD)
+    with pytest.raises(ValueError, match="windows up to"):
+        lk.lk_level(d1, d2, p_lvl, flow, ok, **{**kw, "window": 16})
+    strided = flow.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.lk_level(d1, d2, p_lvl, strided, ok, **kw)
+    wide = torch.zeros(d2["img"].shape[:-1] + (2 * d2["img"].shape[-1],),
+                       device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.lk_level(d1, {"img": wide}, p_lvl, flow, ok, **kw)
+    with pytest.raises(ValueError, match="points' batch"):
+        lk.lk_level(d1, d2, p_lvl[:2], flow[:2], ok[:2], **kw)
+
+
+def test_batched_pyramid_is_batch_invariant():
+    """A sequence's pyramid on the card does not depend on the batch it is
+    built in (the batched resize is a fixed-order tap sum): BATCH images at
+    once equal each image as a batch of one, bit for bit; one unbatched
+    image (two dense products) agrees within 1e-6."""
+    scene = make_scene(n_frames=BATCH, height=376, width=1241,
+                       n_points=6000, stereo=True, baseline=0.54, seed=7,
+                       layout="city")
+    imgs = torch.from_numpy(np.stack([scene.frame(b)[0] for b in
+                                      range(BATCH)]).astype(np.float32))
+    imgs = imgs.cuda()
+    batched = lk_pyramid_impl(imgs, levels=3, pad=PAD)
+    for b in range(BATCH):
+        one = lk_pyramid_impl(imgs[b:b + 1], levels=3, pad=PAD)
+        single = lk_pyramid_impl(imgs[b], levels=3, pad=PAD)
+        for lvl_b, lvl_1, lvl_s in zip(batched, one, single):
+            assert torch.equal(lvl_b["stack"][b], lvl_1["stack"][0]), b
+            d = (lvl_b["stack"][b] - lvl_s["stack"]).abs().max()
+            assert float(d) <= 1e-6, float(d)

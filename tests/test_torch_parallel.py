@@ -463,10 +463,15 @@ def test_ba_reduce_none_and_one_rank_give_the_same_bits():
 
 def test_frontend_step_is_lk_stage_then_geometry():
     """frontend_step gives the bits of fb_cascade followed by
-    frontend_geometry, and frontend_mesh_step on a (1, 1) mesh those of
-    frontend_step."""
+    frontend_geometry. frontend_mesh_step on a (1, 1) mesh runs its
+    sequences as one batch: it gives the bits of the batched fb_cascade
+    followed by frontend_geometry_batched, and in its LK outputs, RANSAC
+    masks and inlier counts those of frontend_step on each sequence alone.
+    (Its two float outputs from the batched geometry's small products agree
+    with frontend_step's to the bounds of tests/test_torch_batched.py.)"""
     from slamtpu_torch import random as trandom
     from slamtpu_torch.ops.frontend_step import (frontend_geometry,
+                                                 frontend_geometry_batched,
                                                  frontend_step)
     from slamtpu_torch.ops.image import lk_pyramid_impl
     from slamtpu_torch.ops.lucas_kanade import fb_cascade
@@ -505,7 +510,25 @@ def test_frontend_step_is_lk_stage_then_geometry():
         out = multi.frontend_mesh_step(multi.make_mesh(1))(*args)
     names = ("new_px", "ok", "ess_outlier", "p3p_inliers", "pnp_theta",
              "median_parallax", "p3p_n_inliers")
+    T = {name: torch.from_numpy(np.ascontiguousarray(a)) for name, a in
+         (("px", px), ("valid", valid), ("prior", prior), ("disp", disp),
+          ("mp", mp_pos), ("has_mp", has_mp), ("und", prev_und),
+          ("bear", prev_bear), ("join", has_join), ("R", R_comp),
+          ("theta", theta_pred))}
+    pyrs = [lk_pyramid_impl(torch.from_numpy(im), levels=2, pad=pad)
+            for im in (img_prev, img_cur)]
+    lk_b = fb_cascade(*pyrs, T["px"], T["prior"], T["disp"], T["valid"],
+                      levels=2, prior_level=1, window=5, pad=pad)
+    geo_b = frontend_geometry_batched(
+        *lk_b, T["mp"], T["has_mp"], join_idx, T["join"] & T["valid"],
+        T["und"], T["bear"], T["R"], T["theta"], torch.from_numpy(intr),
+        torch.from_numpy(dist_), torch.from_numpy(keys.astype(np.int64)),
+        **hyp)
     for name, got in zip(names, out):
-        want = res[name].to(torch.int32) if name == "p3p_n_inliers" \
-            else res[name]
-        assert torch.equal(got[b], want), name
+        want = geo_b[name].to(torch.int32) if name == "p3p_n_inliers" \
+            else geo_b[name]
+        assert torch.equal(got, want), name
+        if name not in ("pnp_theta", "median_parallax"):
+            want = res[name].to(torch.int32) if name == "p3p_n_inliers" \
+                else res[name]
+            assert torch.equal(got[b], want), name
