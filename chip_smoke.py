@@ -121,6 +121,30 @@ Phases, one line each; any failure raises and exits nonzero:
      perturbation; prints each step's ms and sequences a second at both
      sizes and the level kernel's device ms a launch in each, beside the
      card's name and power limit.
+  18. the dense, wide-BA path: the JAX package's high-density and wide-BA
+     configurations in one Params (DENSE_PARAMS: 2000 keypoints in a
+     capacity of 2048, 4 + 1 pyramid levels, a 30-keyframe BA window) on
+     bench.py's 60-frame city scene at 24,000 scene points, fed as phase 6
+     feeds its scene, every LK cascade under set_sync_debug_mode("error");
+     asserts no reset, >= 1,800 detections at the first keyframe, > 40
+     dispatches, >= 2 BAs applied, the level kernel on level 4 with
+     N = 2048 and K2 with N = 2048, keyframes within 2 and metric ATE <= 2x
+     + 0.01 m of the JAX package's CPU run (JAX_DENSE_*), and the
+     FREE_CAP holds (solves and largest free count) within 2 of its;
+     prints every BA solve's P / X / O and device ms, the memory peaks and
+     the FPS (the 12 keyframes never fill the 30-keyframe window: every
+     solve there stays at P 16);
+  18a. the level kernel on level-0 and level-4 calls and K2 on an N = 2048
+     call captured in phase 18, against their plain versions (phase 4b's
+     and phase 4's bounds), with times and bounds;
+  19. local BA at the published wide-BA size (WIDE_BA: 30 poses, 8 free,
+     10,000 points, 60,000 observations; P 32, X 16384, O 65536) on the
+     card against the port's CPU result of the same buffer (final cost
+     within 1e-4 relative, outlier masks equal on >= 99.9%, poses and
+     points within 1e-4 of the largest magnitude of each) and the JAX
+     package's final cost (JAX_WIDE_BA), pose error <= 0.05x the input's;
+     prints the solve's ms and memory peak. P 32 runs only here, not
+     through the entry point.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -135,6 +159,7 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -168,27 +193,35 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
+# Profiles _device_ms takes before it reports a kernel's time not measured.
+PROFILE_TRIES = 3
+
+
 def _device_ms(fn, kernel: str, reps: int = 20):
     """Mean device time (ms) of one launch of the CUDA kernel whose name
     holds `kernel`, from torch.profiler over `reps` calls of fn; None when
-    the profiler reports no device time for it. Unlike _median_ms, this
-    leaves out the wrapper's host work."""
+    the profiler reports no device time for it in PROFILE_TRIES profiles
+    (now and then one profile holds no event of a kernel that ran). Unlike
+    _median_ms, this leaves out the wrapper's host work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = count = 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += getattr(evt, "self_device_time_total",
-                                getattr(evt, "self_cuda_time_total", 0))
-            count += evt.count
-    return total_us / count / 1e3 if count and total_us else None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = count = 0
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                total_us += getattr(evt, "self_device_time_total",
+                                    getattr(evt, "self_cuda_time_total", 0))
+                count += evt.count
+        if count and total_us:
+            return total_us / count / 1e3
+    return None
 
 
 def _fmt(ms):
@@ -363,10 +396,47 @@ def phase_k1_subpix(dev):
                 bound_by=b_by, max_abs_err=float((out - ref).abs().max()))
 
 
+def _k2_check(tag, resp, yx, valid, kw):
+    """K2 against its plain version, one launch and bit-exact, or raise;
+    then its ms (CUDA events), device ms (torch.profiler), the plain
+    version's ms and the bound (the response read and the map written once,
+    the points read once), logged under `tag` and returned as a row."""
+    import torch
+
+    from slamtpu_torch.ops import detect_suppress as ds
+
+    h, w = resp.shape
+    n = yx.shape[0]
+    before = ds.suppress_and_nms.launches
+    out = ds.suppress_and_nms_cuda(resp, yx, valid, **kw)
+    ref = ds.suppress_and_nms_plain(resp, yx, valid, **kw)
+    torch.cuda.synchronize()
+    if ds.suppress_and_nms.launches != before + 1:
+        raise AssertionError(f"K2 is not one launch ({tag})")
+    if not torch.equal(out, ref):
+        raise AssertionError(f"K2 is not bit-exact with its plain version "
+                             f"({tag}, N={n})")
+    k_ms = _median_ms(lambda: ds.suppress_and_nms_cuda(resp, yx, valid, **kw))
+    p_ms = _median_ms(lambda: ds.suppress_and_nms_plain(resp, yx, valid,
+                                                         **kw))
+    d_ms = _device_ms(lambda: ds.suppress_and_nms_cuda(resp, yx, valid, **kw),
+                      "suppress_nms_kernel")
+    b_ms, b_by = _bound(2 * 4 * h * w + 9 * n)
+    extra = ({"device_ms_earlier_kernel": EARLIER_K2_K1_DEVICE_MS["k2"]}
+             if tag == "k2" else {})
+    _log(tag, shape=f"({h},{w})", n=n, valid=int(valid.sum()),
+         radius=kw["radius"], bit_exact=True, launches_per_call=1,
+         kept=int((out > 0).sum()), ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms),
+         **extra, plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}",
+         library_ms="null")
+    return dict(shape=f"({h},{w})", n=n, ms=k_ms, device_ms=d_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=float((out - ref).abs().max()))
+
+
 def phase_k2(dev):
     """Suppression + NMS at (376, 1241), N = 1024 (~70% valid), r = 17."""
     import torch
-    from slamtpu_torch.ops import detect_suppress as ds
 
     gen = torch.Generator(device="cpu").manual_seed(2)
     h, w, n, r, min_resp = 376, 1241, 1024, 17, 1e-4
@@ -375,31 +445,14 @@ def phase_k2(dev):
                       torch.randint(0, w, (n,), generator=gen)],
                      dim=-1).to(torch.int32).to(dev)
     valid = (torch.rand((n,), generator=gen) < 0.7).to(dev)
-    kw = dict(radius=r, min_response=min_resp)
-    before = ds.suppress_and_nms.launches
-    out = ds.suppress_and_nms_cuda(resp, yx, valid, **kw)
-    ref = ds.suppress_and_nms_plain(resp, yx, valid, **kw)
-    torch.cuda.synchronize()
-    if ds.suppress_and_nms.launches != before + 1:
-        raise AssertionError("K2 is not one launch")
-    if not torch.equal(out, ref):
-        raise AssertionError("K2 is not bit-exact with its plain version")
-    k_ms = _median_ms(lambda: ds.suppress_and_nms_cuda(resp, yx, valid, **kw))
-    p_ms = _median_ms(lambda: ds.suppress_and_nms_plain(resp, yx, valid,
-                                                         **kw))
-    d_ms = _device_ms(lambda: ds.suppress_and_nms_cuda(resp, yx, valid,
-                                                        **kw),
-                      "suppress_nms_kernel")
-    b_ms, b_by = _bound(2 * 4 * h * w + 9 * n)
-    _log("k2", shape=f"({h},{w})", n=n, valid=int(valid.sum()), radius=r,
-         bit_exact=True, launches_per_call=1, kept=int((out > 0).sum()),
-         ms=f"{k_ms:.4f}", device_ms=_fmt(d_ms),
-         device_ms_earlier_kernel=EARLIER_K2_K1_DEVICE_MS["k2"],
-         plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}", library_ms="null")
+    row = _k2_check("k2", resp, yx, valid, dict(radius=r,
+                                                min_response=min_resp))
+    k_ms, p_ms, d_ms, b_ms, b_by = (row[k] for k in (
+        "ms", "plain_ms", "device_ms", "bound_ms", "bound_by"))
     return {"name": "suppress_nms", "route": "cuda",
             "source": "slamtpu_torch/csrc/suppress_nms.cu",
             "replaces": "slamtpu/ops/detect_pallas.py:55",
-            "max_abs_err": float((out - ref).abs().max()), "ms": k_ms,
+            "max_abs_err": row["max_abs_err"], "ms": k_ms,
             "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
@@ -454,6 +507,60 @@ def _level_work(p_lvl, flow, ok, counts, its, hw, hwp, pad, window):
     return nbytes, flops, point_iters, n_live
 
 
+def _level_check(tag, level, d1, d2, p_lvl, flow, ok, kw):
+    """The 2-D level kernel against lk_level_plain on one level's inputs:
+    ok masks agree on >= 99.5% of the points alive at entry and flows of
+    points ok in both within 1e-3 px, or raise; then its ms (CUDA events),
+    device ms (torch.profiler), the plain version's ms and the bound
+    (_level_work), logged under `tag` and returned as a row."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch.ops import lucas_kanade as lk
+
+    pad, window, n = kw["pad"], kw["window"], p_lvl.shape[0]
+    flow_k, ok_k, counts, its = lk.lk_level_cuda(
+        d1, d2, p_lvl, flow, ok, return_counts=True, **kw)
+    flow_p, ok_p = lk.lk_level_plain(d1, d2, p_lvl, flow, ok, **kw)
+    torch.cuda.synchronize()
+    alive = ok.cpu().numpy()
+    ok_k_np, ok_p_np = ok_k.cpu().numpy(), ok_p.cpu().numpy()
+    agree = float((ok_k_np == ok_p_np)[alive].mean())
+    both = ok_k_np & ok_p_np
+    err = float(np.abs(flow_k.cpu().numpy()[both]
+                       - flow_p.cpu().numpy()[both]).max(initial=0.0))
+    if ok_k_np[~alive].any() or not agree >= 0.995 or not err <= 1e-3:
+        raise AssertionError(f"LK level kernel differs from its plain "
+                             f"version at level {level} ({tag}): ok "
+                             f"agreement {agree:.4f}, flow error {err:.2e} "
+                             f"px")
+    nbytes, flops, point_iters, n_live = _level_work(
+        p_lvl, flow, ok, counts, its, kw["hw"], d2["img"].shape, pad, window)
+    its = int(its)
+    b_ms, b_by = _bound(nbytes, flops)
+    k_ms = _median_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
+                                                **kw))
+    p_ms = _median_ms(lambda: lk.lk_level_plain(d1, d2, p_lvl, flow, ok,
+                                                 **kw), reps=10, warmup=2)
+    d_ms = _device_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
+                                               **kw), "lk_level_kernel")
+    extra = ({"device_ms_barrier_kernel": BARRIER_DEVICE_MS[("2-D", level)]}
+             if tag == "lk_level" else {})
+    _log(tag, level=level, shape=tuple(d1["stack"].shape), n=n,
+         alive=n_live, ok_kernel=int(ok_k_np.sum()),
+         ok_plain=int(ok_p_np.sum()), ok_agreement=f"{agree:.4f}",
+         max_flow_err_px=f"{err:.2e}", iterations=its,
+         point_iterations=point_iters, ms=f"{k_ms:.4f}",
+         device_ms=_fmt(d_ms), **extra,
+         plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+         library_ms="null")
+    return dict(level=level, shape=tuple(d1["stack"].shape), n=n,
+                ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, max_abs_err=err,
+                ok_agreement=agree, iterations=its,
+                point_iterations=point_iters)
+
+
 def phase_lk_level(dev):
     """The LK level kernel at the main path's level-0 and level-3 shapes
     (window 9, 30 iterations, lk_min_active 16, N = 1024) on a real pyramid
@@ -488,45 +595,8 @@ def phase_lk_level(dev):
                   iters=p.lk_iterations, eps=p.lk_epsilon,
                   eig_thresh=p.lk_eigenvalue_threshold, pad=pad,
                   min_active=p.lk_min_active)
-        flow_k, ok_k, counts, its = lk.lk_level_cuda(
-            d1, d2, p_lvl, flow, ok, return_counts=True, **kw)
-        flow_p, ok_p = lk.lk_level_plain(d1, d2, p_lvl, flow, ok, **kw)
-        torch.cuda.synchronize()
-        alive = ok.cpu().numpy()
-        ok_k_np, ok_p_np = ok_k.cpu().numpy(), ok_p.cpu().numpy()
-        agree = float((ok_k_np == ok_p_np)[alive].mean())
-        both = ok_k_np & ok_p_np
-        err = float(np.abs(flow_k.cpu().numpy()[both]
-                           - flow_p.cpu().numpy()[both]).max())
-        if ok_k_np[~alive].any() or not agree >= 0.995 or not err <= 1e-3:
-            raise AssertionError(f"LK level kernel differs from its plain "
-                                 f"version at level {level}: ok agreement "
-                                 f"{agree:.4f}, flow error {err:.2e} px")
-        nbytes, flops, point_iters, n_live = _level_work(
-            p_lvl, flow, ok, counts, its, kw["hw"], d2["img"].shape, pad,
-            p.window_size)
-        its = int(its)
-        b_ms, b_by = _bound(nbytes, flops)
-        k_ms = _median_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
-                                                    **kw))
-        p_ms = _median_ms(lambda: lk.lk_level_plain(d1, d2, p_lvl, flow, ok,
-                                                     **kw), reps=10,
-                          warmup=2)
-        d_ms = _device_ms(lambda: lk.lk_level_cuda(d1, d2, p_lvl, flow, ok,
-                                                   **kw), "lk_level_kernel")
-        _log("lk_level", level=level, shape=tuple(d1["stack"].shape), n=n,
-             alive=n_live, ok_kernel=int(ok_k_np.sum()),
-             ok_plain=int(ok_p_np.sum()), ok_agreement=f"{agree:.4f}",
-             max_flow_err_px=f"{err:.2e}", iterations=its,
-             point_iterations=point_iters, ms=f"{k_ms:.4f}",
-             device_ms=_fmt(d_ms),
-             device_ms_barrier_kernel=BARRIER_DEVICE_MS[("2-D", level)],
-             plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
-             library_ms="null")
-        rows.append(dict(level=level, ms=k_ms, device_ms=d_ms,
-                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=err, ok_agreement=agree,
-                         iterations=its, point_iterations=point_iters))
+        rows.append(_level_check("lk_level", level, d1, d2, p_lvl, flow, ok,
+                                 kw))
     batched = _lk_level_batched(dev, p, pad)
     return {"name": "lk_level", "route": "cuda",
             "source": "slamtpu_torch/csrc/lk_level.cu",
@@ -2031,6 +2101,446 @@ def phase_mesh(dev):
     return launches
 
 
+# Phase 18's configuration: the JAX package's high-density and wide-BA
+# configurations (BASELINE.json `configs`) in one path, as
+# tests/test_configs.py combines them, beside stereo=True; the city scene
+# at DENSE_N_POINTS scene points (6000 leave the 2000-keypoint budget
+# unfilled; 24000 fill it at the first keyframe).
+DENSE_PARAMS = dict(max_nb_keypoints=2000, keypoint_capacity=2048,
+                    pyramid_levels=4, max_distance=16, ba_window=30)
+DENSE_N_POINTS = 24000
+DENSE_FRAMES = 60
+# The JAX package's CPU run of phase 18's scene and Params
+# (scripts/cpu_path_reference.py jax dense_wide_ba; PERF.md): keyframes,
+# metric ATE m.
+JAX_DENSE_KFS = 12
+JAX_DENSE_ATE_M = 0.057588
+# The floor of detections admitted at the first keyframe (of the 2000).
+DENSE_FIRST_KF_FLOOR = 1800
+# Phase 18's kernel inputs, captured on the path for phase 18a: the first
+# level-0 call and the first 8 level-4 calls of the 2-D level kernel over
+# all 2048 slots (not the retry lanes) from frame 20 on (phase 18a takes
+# the one with the most points alive: the tracking cascade starts its
+# points with a prior at level 1, so few are alive at level 4 there), and
+# the first K2 call.
+DENSE_INPUTS = {}
+DENSE_CAPTURES = {0: 1, DENSE_PARAMS["pyramid_levels"]: 8}
+
+
+# The free poses of the JAX package's CPU run's BA solves that exceeded
+# FREE_CAP (each logged, the extras held constant).
+JAX_DENSE_FREE_HELD = [9, 10, 11]
+
+
+class _FreeCapLog(logging.Handler):
+    """Collects the free-pose counts of the Estimator's FREE_CAP warnings."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.free = []
+
+    def emit(self, record):
+        if "FREE_CAP" in record.getMessage():
+            self.free.append(record.args[0])
+
+
+def _captured_bytes():
+    """Device bytes of the tensors phase 18 captured (inside its run's
+    memory peak)."""
+    import torch
+
+    def size(x):
+        if torch.is_tensor(x):
+            return x.numel() * x.element_size()
+        if isinstance(x, dict):
+            return sum(size(v) for v in x.values())
+        if isinstance(x, (tuple, list)):
+            return sum(size(v) for v in x)
+        return 0
+
+    return size(list(DENSE_INPUTS.values()))
+
+
+def _level_shape(h, w, level):
+    """A pyramid level's (H, W): the image ceil-halved `level` times."""
+    for _ in range(level):
+        h, w = -(-h // 2), -(-w // 2)
+    return h, w
+
+
+def phase_dense_path(dev):
+    """Phase 18: bench.py's 60-frame 376x1241 city scene at DENSE_N_POINTS
+    scene points through SlamManager.add_stereo_image with
+    Params(stereo=True, **DENSE_PARAMS) (2000 keypoints in a capacity of
+    2048, 4 + 1 pyramid levels, a 30-keyframe BA window; every other field
+    at its default), fed as phase 6 feeds its scene, every tracked frame's
+    LK cascade under set_sync_debug_mode("error"). Asserts no reset, a
+    finite 60-pose trajectory, >= DENSE_FIRST_KF_FLOOR detections admitted
+    at the first keyframe, > 40 pipelined dispatches, >= 2 BAs applied, the
+    2-D level kernel launched on level 4 with N = 2048 and K2 with
+    N = 2048, standalone K1 and the 1-D mode not, keyframes within 2 of the
+    JAX package's CPU run and metric ATE <= 2x its ATE + 0.01 m. Prints
+    P / X / O and the device ms (CUDA events) of every BA solve, the memory
+    peak of the largest solve alone and of the whole run
+    (torch.cuda.max_memory_allocated), the FPS after 15 frames and the
+    stage timers, and the free-pose counts of the BA solves held to
+    FREE_CAP beside the JAX package's; asserts their number and the
+    largest within 2 of the JAX package's (the keyframe tolerance).
+    Captures level-0 and level-4 level calls and one K2 call (N = 2048,
+    from frame 20 on) into DENSE_INPUTS."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.datasets.synthetic import make_scene
+    from slamtpu_torch.eval.ate import ate_rmse
+    from slamtpu_torch.models import estimator as est_mod
+    from slamtpu_torch.ops import detect_suppress as ds
+    from slamtpu_torch.ops import frontend_step as fs_mod
+    from slamtpu_torch.ops import lucas_kanade as lk
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    scene = make_scene(n_frames=DENSE_FRAMES, height=376, width=1241,
+                       n_points=DENSE_N_POINTS, stereo=True, baseline=0.54,
+                       seed=7, layout="city")
+    # Rendered before the timed run (24,000 points take the renderer
+    # longer than the port takes a frame).
+    frames = [scene.frame(i) for i in range(len(scene))]
+    params = Params(stereo=True, **DENSE_PARAMS)
+    cap, top = params.keypoint_capacity, params.pyramid_levels
+    pad = lk.lk_pad(params.window_size)
+    padded = {lv: tuple(d + 2 * pad for d in _level_shape(376, 1241, lv))
+              for lv in (0, top)}
+    saver = ReplaySaver()
+    sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
+                     slam_io=saver, device=dev)
+
+    ba_orig = est_mod.local_bundle_adjustment_packed
+    level_orig = lk.lk_level_cuda
+    k2_orig = ds.suppress_and_nms_cuda
+    cascade_orig = fs_mod.fb_cascade
+    ba_calls, no_sync_cascades = [], []
+    level_calls, k2_calls = collections.Counter(), collections.Counter()
+    capture = {"on": False}
+
+    def ba_spy(buf, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ba_orig(buf, **kw)
+        end.record()
+        ba_calls.append((buf, kw, start, end))
+        return out
+
+    def level_spy(d1, d2, p_lvl, flow, ok, **kw):
+        hw = tuple(d1["stack"].shape[-2:])
+        one_d = bool(kw.get("one_d", False))
+        level_calls[hw, p_lvl.shape[-2], one_d] += 1
+        for lv, shape in padded.items():
+            got = DENSE_INPUTS.setdefault(("level", lv), [])
+            if (capture["on"] and hw == shape and not one_d
+                    and tuple(p_lvl.shape) == (cap, 2)
+                    and len(got) < DENSE_CAPTURES[lv]):
+                got.append((
+                    {"stack": d1["stack"].clone()}, {"img": d2["img"].clone()},
+                    p_lvl.clone(), flow.clone(), ok.clone(),
+                    {k: v for k, v in kw.items()
+                     if k not in ("return_counts", "one_d")}))
+        return level_orig(d1, d2, p_lvl, flow, ok, **kw)
+
+    def k2_spy(resp, yx, valid, **kw):
+        k2_calls[yx.shape[0]] += 1
+        if capture["on"] and yx.shape[0] == cap and "k2" not in DENSE_INPUTS:
+            DENSE_INPUTS["k2"] = (resp.clone(), yx.clone(), valid.clone(),
+                                  dict(kw))
+        return k2_orig(resp, yx, valid, **kw)
+
+    est_mod.local_bundle_adjustment_packed = ba_spy
+    lk.lk_level_cuda = level_spy
+    ds.suppress_and_nms_cuda = k2_spy
+    fs_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TIMERS.reset()
+    _reset_counts()
+    resets = _counting_resets(sm)
+    held = _FreeCapLog()
+    logging.getLogger("slamtpu_torch.es").addHandler(held)
+    warm, first_kf = 15, None
+    t_warm = None
+    t0 = time.perf_counter()
+    try:
+        for i in range(len(scene)):
+            if i == warm:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            capture["on"] = i >= 20
+            sm.add_stereo_image(*frames[i], float(scene.timestamps[i]))
+            if first_kf is None:
+                first_kf = sm.front_end.current_frame.nb_keypoints
+        sm.finish()
+        torch.cuda.synchronize()
+    finally:
+        est_mod.local_bundle_adjustment_packed = ba_orig
+        lk.lk_level_cuda = level_orig
+        ds.suppress_and_nms_cuda = k2_orig
+        fs_mod.fb_cascade = cascade_orig
+        logging.getLogger("slamtpu_torch.es").removeHandler(held)
+    t1 = time.perf_counter()
+    launches = _read_counts()
+    run_peak = torch.cuda.max_memory_allocated()
+
+    est = saver.trajectory_xyz().astype(np.float64)
+    gt = np.stack([q[:3, 3] for q in scene.poses_wc])
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"dense: trajectory {est.shape} not finite / "
+                             f"not {gt.shape}")
+    ate = ate_rmse(est, gt, align_scale=False)
+    n_kf = sm.map_manager.nb_keyframes
+    fps = (len(scene) - warm) / (t1 - t_warm)
+    FPS["dense_wide_ba"] = fps
+    summary = TIMERS.summary()
+
+    def calls(stage):
+        return summary.get(stage, {}).get("calls", 0)
+
+    solves = [dict(P=kw["P"], X=kw["X"], O=kw["O"],
+                   ms=round(start.elapsed_time(end), 3))
+              for _, kw, start, end in ba_calls]
+    # The largest solve again, alone: its device ms and memory peak.
+    ba_ms = ba_peak = None
+    if ba_calls:
+        buf, kw, _, _ = max(ba_calls, key=lambda c: c[1]["X"] * c[1]["O"])
+        ba_ms = _median_ms(lambda: ba_orig(buf, **kw), reps=3, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ba_orig(buf, **kw)
+        torch.cuda.synchronize()
+        ba_peak = torch.cuda.max_memory_allocated() - base
+    level_n = {f"{hw[0]}x{hw[1]}/N={n}{'/1-D' if d else ''}": c
+               for (hw, n, d), c in sorted(level_calls.items())}
+    _log("dense_path", frames=len(scene), fps_after_15=f"{fps:.3f}",
+         total_s=f"{t1 - t0:.3f}", keyframes=n_kf,
+         jax_keyframes=JAX_DENSE_KFS, resets=resets["n"],
+         ate_m=f"{ate:.5f}", jax_ate_m=f"{JAX_DENSE_ATE_M:.5f}",
+         first_keyframe_keypoints=first_kf,
+         dispatches=calls("fe.pipe.dispatch"),
+         async_keyframes=calls("mp.kf_async.dispatch"),
+         ba_solves=calls("es.ba"), ba_applied=calls("es.ba_apply"),
+         free_poses_held=json.dumps(held.free, separators=(",", ":")),
+         jax_free_poses_held=json.dumps(JAX_DENSE_FREE_HELD),
+         cascades_without_sync=len(no_sync_cascades),
+         launches=json.dumps(launches, separators=(",", ":")))
+    _log("dense_path", card=f"'{SMI}'",
+         ba_solves=json.dumps(solves, separators=(",", ":")),
+         largest_ba_ms=_fmt(ba_ms),
+         largest_ba_peak_mib=(f"{ba_peak / 2**20:.1f}"
+                              if ba_peak is not None else "none"),
+         run_peak_mib=f"{run_peak / 2**20:.1f}",
+         captured_mib=f"{_captured_bytes() / 2**20:.1f}",
+         level_calls=json.dumps(level_n, separators=(",", ":")),
+         k2_calls=json.dumps({f"N={n}": c for n, c in
+                              sorted(k2_calls.items())},
+                             separators=(",", ":")))
+    print("[dense_path] stage_timers " + json.dumps(_stage_summary(
+        summary, ("fe.pipe.", "mp.kf_async.", "es.ba", "sm."))), flush=True)
+
+    if resets["n"]:
+        raise AssertionError(f"dense: {resets['n']} reset(s)")
+    if not first_kf >= DENSE_FIRST_KF_FLOOR:
+        raise AssertionError(f"dense: {first_kf} detections admitted at the "
+                             f"first keyframe, expected >= "
+                             f"{DENSE_FIRST_KF_FLOOR}")
+    if not calls("fe.pipe.dispatch") > 40:
+        raise AssertionError("dense: the pipeline did not engage: "
+                             f"{calls('fe.pipe.dispatch')} dispatches")
+    if not calls("es.ba_apply") >= 2:
+        raise AssertionError(f"dense: {calls('es.ba_apply')} BA results "
+                             "applied, expected >= 2")
+    if len(no_sync_cascades) < calls("fe.pipe.dispatch"):
+        raise AssertionError(f"dense: {len(no_sync_cascades)} LK cascades ran "
+                             f"under sync debug mode for "
+                             f"{calls('fe.pipe.dispatch')} dispatches")
+    if not level_calls[padded[top], cap, False]:
+        raise AssertionError(f"dense: the level kernel never ran on level "
+                             f"{top} {padded[top]} with N = {cap}: "
+                             f"{level_n}")
+    if not k2_calls[cap]:
+        raise AssertionError(f"dense: K2 never ran with N = {cap}: "
+                             f"{dict(k2_calls)}")
+    missing = {("level", 0), ("level", top), "k2"} - {
+        k for k, v in DENSE_INPUTS.items() if v}
+    if missing:
+        raise AssertionError(f"dense: no kernel inputs captured for "
+                             f"{missing}")
+    _check_path_kernels("dense_wide_ba", launches)
+    if abs(n_kf - JAX_DENSE_KFS) > 2:
+        raise AssertionError(f"dense: {n_kf} keyframes, expected "
+                             f"{JAX_DENSE_KFS} +- 2")
+    # The holds follow the keyframes: their number and the largest free
+    # count within the keyframe tolerance of the JAX package's.
+    if not held.free \
+            or abs(len(held.free) - len(JAX_DENSE_FREE_HELD)) > 2 \
+            or abs(max(held.free) - max(JAX_DENSE_FREE_HELD)) > 2:
+        raise AssertionError(f"dense: FREE_CAP held {held.free} free poses, "
+                             f"expected {JAX_DENSE_FREE_HELD} within 2 "
+                             f"(solves and largest count)")
+    ate_bound = 2.0 * JAX_DENSE_ATE_M + 0.01
+    if not ate <= ate_bound:
+        raise AssertionError(f"dense: metric ATE {ate:.4f} m > "
+                             f"{ate_bound:.4f} m")
+    return launches
+
+
+def phase_dense_kernels():
+    """Phase 18a: the 2-D level kernel on a level-0 and a level-4 call
+    (of those captured, the one with the most points alive at entry) and
+    K2 on the N = 2048 call that phase 18 captured (DENSE_INPUTS),
+    against their plain versions with phase 4b's and phase 4's bounds;
+    their ms, device ms, plain ms and bounds. Returns {"lk_level": rows,
+    "suppress_nms": row}."""
+    rows = []
+    for key in sorted(k for k in DENSE_INPUTS if k != "k2"):
+        d1, d2, p_lvl, flow, ok, kw = max(DENSE_INPUTS[key],
+                                          key=lambda c: int(c[4].sum()))
+        rows.append(_level_check("dense_kernels", key[1], d1, d2, p_lvl,
+                                 flow, ok, kw))
+    resp, yx, valid, kw = DENSE_INPUTS["k2"]
+    k2 = _k2_check("dense_kernels", resp, yx, valid, kw)
+    DENSE_INPUTS.clear()
+    return {"lk_level": rows, "suppress_nms": k2}
+
+
+# Phase 19's problem: the JAX package's published wide-BA size
+# (BASELINE.json: a 30-keyframe window, 10k map points), 8 free poses
+# (FREE_CAP) ordered first, 22 constant, about 6 observations a point.
+WIDE_BA = dict(n_poses=30, n_points=10000, n_obs=60000, n_free=8, seed=0)
+# The JAX package's CPU solve of it (scripts/wide_ba_reference.py jax;
+# PERF.md): the packed buffer's float64 sum (the same inputs) and the final
+# cost.
+JAX_WIDE_BA = {"buffer_sum": 319008033.4808403,
+               "final_cost": 902.1524658203125}
+
+
+# The bound for every point of phase 19, card against CPU, relative to the
+# largest magnitude: point 5916 is seen by two poses whose rays are 0.19
+# degrees apart, so its depth lies in a valley that rounding moves along;
+# there the JAX package and the port differ by 1.2e-3 on the CPU.
+WIDE_BA_POINTS_ALL = 2e-3
+
+
+def wide_ba_problem():
+    """(packed buffer, (P, X, O), make_ba_inputs' args, true poses) of
+    WIDE_BA, padded at the Estimator's buckets (P 32, X 16384, O 65536)."""
+    from slamtpu_torch.ops.ba import pack_ba_problem
+    from slamtpu_torch.parallel.multi import make_ba_inputs
+    from slamtpu_torch.utils.padding import next_bucket
+
+    w = WIDE_BA
+    args, poses_gt, _ = make_ba_inputs(w["n_poses"], w["n_points"],
+                                       w["n_obs"], seed=w["seed"],
+                                       n_free=w["n_free"])
+    shape = (next_bucket(w["n_poses"], minimum=16),
+             next_bucket(w["n_points"], minimum=2048),
+             next_bucket(w["n_obs"], minimum=8192))
+    buf = pack_ba_problem(*args, P=shape[0], X=shape[1], O=shape[2])
+    return buf, shape, args, poses_gt
+
+
+def phase_wide_ba(dev):
+    """Phase 19: local_bundle_adjustment_packed on WIDE_BA on the card and
+    on the CPU (the port's own result of the same buffer). Asserts the
+    inputs are the JAX package's (JAX_WIDE_BA's buffer sum within 1e-12
+    relative), the card's final cost within 1e-4 relative of the CPU's and
+    of the JAX package's (on an H100 they differ by ~1e-6: the long sums
+    run in float64), outlier masks equal on >= 99.9% of the observations,
+    the card's poses within 1e-4 of the CPU's largest magnitude
+    (tests/test_torch_ba.py's bound), >= 99.9% of its points within 1e-4
+    of the CPU points' largest magnitude and every point within
+    WIDE_BA_POINTS_ALL of it, and the card's largest pose error <= 0.05x
+    the input perturbation's. Prints the solve ms (CUDA events, median of 3), the CPU solve's
+    seconds and the memory peak of the solve
+    (torch.cuda.max_memory_allocated above what was allocated before
+    it)."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch.ops.ba import local_bundle_adjustment_packed as ba
+
+    buf, (P, X, O), args, poses_gt = wide_ba_problem()
+    buf_sum = float(buf.astype(np.float64).sum())
+    # Another numpy may sum in another order (~1e-16 relative); other draws
+    # would move the sum by far more than 1e-12.
+    if not abs(buf_sum - JAX_WIDE_BA["buffer_sum"]) <= \
+            1e-12 * JAX_WIDE_BA["buffer_sum"]:
+        raise AssertionError(f"wide BA: inputs differ from the JAX package's "
+                             f"run (buffer sum {buf_sum!r}, expected "
+                             f"{JAX_WIDE_BA['buffer_sum']!r})")
+    buf_dev = torch.from_numpy(buf).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    card = {k: v.cpu().numpy() for k, v in
+            ba(buf_dev, P=P, X=X, O=O).items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = _median_ms(lambda: ba(buf_dev, P=P, X=X, O=O), reps=3, warmup=1)
+    t0 = time.perf_counter()
+    cpu = {k: v.numpy() for k, v in
+           ba(torch.from_numpy(buf), P=P, X=X, O=O).items()}
+    cpu_s = time.perf_counter() - t0
+    n = WIDE_BA["n_poses"]
+    cost, cost_cpu = float(card["final_cost"]), float(cpu["final_cost"])
+    agree = float((card["outliers"] == cpu["outliers"])[:WIDE_BA["n_obs"]]
+                  .mean())
+    err_in = float(np.abs(args[0] - poses_gt).max())
+    err = float(np.abs(card["poses"][:n] - poses_gt).max())
+    err_cpu = float(np.abs(cpu["poses"][:n] - poses_gt).max())
+    # Card against CPU, relative to the CPU's largest magnitude.
+    poses_rel = float(np.abs(card["poses"] - cpu["poses"]).max()
+                      / np.abs(cpu["poses"]).max())
+    m = WIDE_BA["n_points"]
+    pts_rel = (np.abs(card["points"][:m] - cpu["points"][:m]).max(-1)
+               / np.abs(cpu["points"]).max())
+    worst = int(pts_rel.argmax())
+    pts_share = float((pts_rel <= 1e-4).mean())
+    _log("wide_ba", P=P, X=X, O=O, free=WIDE_BA["n_free"],
+         final_cost=f"{cost:.4f}", cpu_final_cost=f"{cost_cpu:.4f}",
+         jax_final_cost=f"{JAX_WIDE_BA['final_cost']:.4f}",
+         outliers=int(card["outliers"].sum()),
+         outlier_agreement=f"{agree:.5f}", pose_err=f"{err:.6f}",
+         cpu_pose_err=f"{err_cpu:.6f}", input_pose_err=f"{err_in:.6f}",
+         poses_vs_cpu=f"{poses_rel:.2e}",
+         points_share_within_1e4=f"{pts_share:.5f}",
+         worst_point=worst, worst_point_obs=int((args[4] == worst).sum()),
+         worst_point_vs_cpu=f"{pts_rel[worst]:.2e}",
+         ms=f"{ms:.3f}", cpu_s=f"{cpu_s:.3f}",
+         threads=torch.get_num_threads(), peak_mib=f"{peak / 2**20:.1f}",
+         card=f"'{SMI}'")
+    for name, ref in (("the CPU's", cost_cpu),
+                      ("the JAX package's", JAX_WIDE_BA["final_cost"])):
+        if not abs(cost - ref) <= 1e-4 * abs(ref):
+            raise AssertionError(f"wide BA: final cost {cost} differs from "
+                                 f"{name} {ref} by more than 1e-4")
+    if not agree >= 0.999:
+        raise AssertionError(f"wide BA: outlier masks agree on {agree:.5f}")
+    if not poses_rel <= 1e-4:
+        raise AssertionError(f"wide BA: the card's poses differ from the "
+                             f"CPU's by {poses_rel:.2e} of their largest "
+                             f"magnitude (> 1e-4)")
+    if not (pts_share >= 0.999 and pts_rel[worst] <= WIDE_BA_POINTS_ALL):
+        raise AssertionError(f"wide BA: {pts_share:.5f} of the card's points "
+                             f"within 1e-4 of the CPU's (>= 0.999), point "
+                             f"{worst} {pts_rel[worst]:.2e} (<= "
+                             f"{WIDE_BA_POINTS_ALL})")
+    if not err <= 0.05 * err_in:
+        raise AssertionError(f"wide BA: pose error {err:.5f} > 0.05 x "
+                             f"{err_in:.5f}")
+    return dict(P=P, X=X, O=O, ms=ms, peak_bytes=peak, cpu_s=cpu_s)
+
+
 # Floors of the mesh phase: tracked points a sequence (of 1024) in both
 # tracking steps, and P3P inliers a sequence.
 MESH_FLOORS = {"tracked": 900, "p3p_inliers": 700}
@@ -2082,7 +2592,10 @@ def main() -> int:
              "reference": phase_reference_path(dev),
              "threaded": phase_threaded_path(dev),
              "checkpoint": phase_checkpoint_path(dev),
-             "mesh": phase_mesh(dev)}
+             "mesh": phase_mesh(dev),
+             "dense_wide_ba": phase_dense_path(dev)}
+    dense = phase_dense_kernels()
+    phase_wide_ba(dev)
     # Standalone K1's headline numbers are at the shape its path gives it
     # (subpixel refinement); phase 3's LK shapes stay beside them.
     lk_shapes = {k: k1[k] for k in ("ms", "device_ms", "plain_ms",
@@ -2093,6 +2606,10 @@ def main() -> int:
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_subpix["max_abs_err"])
     k1["note"] = f"subpixel refinement shape {k1_subpix['shape']}"
     k1["lk_shapes"] = lk_shapes
+    lk["dense"] = dense["lk_level"]
+    lk["max_abs_err"] = max([lk["max_abs_err"]]
+                            + [r["max_abs_err"] for r in dense["lk_level"]])
+    k2["dense"] = dense["suppress_nms"]
     entries = [k1, k2, lk, lk_1d]
     for entry in entries:
         kernel = entry["name"]

@@ -2,8 +2,9 @@
 and print its result as one JSON line (`RESULT {...}`).
 
     JAX_PLATFORMS=cpu python scripts/cpu_path_reference.py jax|torch \
-        mono|real|default|default60|variant|nocarry|speculate|brief|\
-        reference|threaded|checkpoint [--threads N] [--seed S] \
+        mono|real|default|default60|dense_wide_ba|variant|nocarry|\
+        speculate|brief|reference|threaded|checkpoint [--threads N] \
+        [--seed S] \
         [--init-pose JSON]
 
 mono: bench.py's 60-frame 376x1241 city scene (6000 points, seed 7), left
@@ -25,6 +26,12 @@ tracker and stereo matcher, phase 13); ATE is metric.
 default60: bench.py's 60-frame scene through `add_stereo_image` with
 `Params(stereo=True)`, then `finish()`, as `chip_smoke.py` phases 6 and 16
 feed it; ATE is metric.
+dense_wide_ba: the JAX package's high-density and wide-BA configurations
+in one path, as tests/test_configs.py combines them (`DENSE_PARAMS`: 2000
+keypoints in a capacity of 2048, 4 + 1 pyramid levels, a 30-keyframe BA
+window), on the 60-frame city scene at `DENSE_N_POINTS` (24000) scene
+points so that the first keyframe admits >= 1,800 detections; fed as
+default60 (`chip_smoke.py` phase 18, whose constants these are).
 --seed S builds the city scene from scene seed S in place of 7 (every route
 but real); phase 16 holds the port to the JAX package's default60 runs on
 seeds 8, 9 and 11.
@@ -73,6 +80,10 @@ import numpy as np
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+# The dense_wide_ba path's Params beside stereo=True and its scene's points
+# are chip_smoke.py phase 18's.
+from chip_smoke import DENSE_N_POINTS, DENSE_PARAMS  # noqa: E402
+
 
 def _package(name):
     if name == "jax":
@@ -103,7 +114,7 @@ def _package(name):
                 save_state=save_state, load_state=load_state)
 
 
-# Params of the 30-frame stereo paths beside stereo=True.
+# Params of the stereo paths beside stereo=True (30 frames, dense_wide_ba 60).
 STEREO_PATHS = {
     "default": dict(),
     "variant": dict(stereo_klt_1d=True, subpixel_detect=True),
@@ -112,6 +123,7 @@ STEREO_PATHS = {
     "brief": dict(do_local_matching=True),
     "reference": dict(fused_front_end=False, fused_stereo=False,
                       do_local_matching=True),
+    "dense_wide_ba": DENSE_PARAMS,
 }
 
 
@@ -162,9 +174,10 @@ def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
         def feed(i):
             sm.add_image(frames[i], 0.1 * i)
     else:
-        n = 60 if path in ("mono", "default60") else 30
+        n = 60 if path in ("mono", "default60", "dense_wide_ba") else 30
+        n_points = DENSE_N_POINTS if path == "dense_wide_ba" else 6000
         scene = k["make_scene"](n_frames=n, height=376, width=1241,
-                                n_points=6000, stereo=True, baseline=0.54,
+                                n_points=n_points, stereo=True, baseline=0.54,
                                 seed=seed, layout="city")
         gt = np.stack([q[:3, 3] for q in scene.poses_wc])
         if path == "mono":

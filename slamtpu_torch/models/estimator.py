@@ -27,7 +27,8 @@ from ..params import Params
 from ..utils.padding import next_bucket
 from ..utils.profiling import TIMERS
 from ..device import upload
-from ..ops.ba import FREE_CAP, local_bundle_adjustment_packed
+from ..ops.ba import (FREE_CAP, local_bundle_adjustment_packed,
+                      pack_ba_problem)
 from .map_manager import MapManager
 
 log = logging.getLogger("slamtpu_torch.es")
@@ -244,29 +245,11 @@ class Estimator:
             O = next_bucket(n_obs, minimum=8192)
 
             # ONE packed f32 upload (ops/ba.py layout).
-            buf = np.zeros(P * 7 + X * 3 + O * 5 + 4, np.float32)
-            o = 0
-            buf[o:o + n_poses * 6] = np.asarray(
-                cache["pose_vecs"], np.float32).ravel()
-            o += P * 6
-            buf[o:o + P] = 1.0  # padded slots constant
-            buf[o:o + n_poses] = np.asarray(cache["pose_const"], np.float32)
-            o += P
-            buf[o:o + n_points * 3] = np.asarray(
-                cache["point_vecs"], np.float32).ravel()
-            o += X * 3
-            buf[o:o + n_obs] = np.asarray(cache["obs_pose"], np.float32)
-            o += O
-            buf[o:o + n_obs] = np.asarray(cache["obs_point"], np.float32)
-            o += O
-            buf[o:o + n_obs * 2] = np.asarray(
-                cache["obs_px"], np.float32).ravel()
-            o += O * 2
-            buf[o:o + n_obs] = 1.0  # obs_valid
-            o += O
-            buf[o:o + 4] = np.asarray(
-                new_frame.camera.intrinsics_array(), np.float32)
-
+            buf = pack_ba_problem(
+                cache["pose_vecs"], cache["pose_const"], cache["point_vecs"],
+                cache["obs_pose"], cache["obs_point"], cache["obs_px"],
+                np.ones(n_obs, bool), new_frame.camera.intrinsics_array(),
+                P=P, X=X, O=O)
             res = local_bundle_adjustment_packed(
                 upload(buf, self.map_manager.device), P=P, X=X, O=O,
                 iters1=p.ba_phase1_iterations,

@@ -25,6 +25,7 @@ contribute residuals but get a zero pose Jacobian. BA has no TPU kernel
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .se3 import rot_zyx
@@ -224,6 +225,34 @@ def _lm_rounds(poses, points, pose_free_mask, obs_pose, obs_point, obs_px,
         lam = torch.clamp(torch.where(accept, lam * 0.1, lam * 10.0),
                           1e-8, 1e8)
     return poses, points, cost
+
+
+def pack_ba_problem(poses, pose_const, points, obs_pose, obs_point, obs_px,
+                    obs_valid, intrinsics, *, P: int, X: int, O: int):
+    """The f32 buffer of local_bundle_adjustment_packed for a problem of
+    n_poses <= P poses, n_points <= X points and n_obs <= O observations
+    (numpy arrays or sequences), padded with constant poses, zero points
+    and invalid observations."""
+    n_p, n_x, n_o = len(poses), len(points), len(obs_pose)
+    buf = np.zeros(P * 7 + X * 3 + O * 5 + 4, np.float32)
+    o = 0
+    buf[o:o + n_p * 6] = np.asarray(poses, np.float32).ravel()
+    o += P * 6
+    buf[o:o + P] = 1.0  # padded slots constant
+    buf[o:o + n_p] = np.asarray(pose_const, np.float32)
+    o += P
+    buf[o:o + n_x * 3] = np.asarray(points, np.float32).ravel()
+    o += X * 3
+    buf[o:o + n_o] = np.asarray(obs_pose, np.float32)
+    o += O
+    buf[o:o + n_o] = np.asarray(obs_point, np.float32)
+    o += O
+    buf[o:o + n_o * 2] = np.asarray(obs_px, np.float32).ravel()
+    o += O * 2
+    buf[o:o + n_o] = np.asarray(obs_valid, np.float32)
+    o += O
+    buf[o:o + 4] = np.asarray(intrinsics, np.float32)
+    return buf
 
 
 def local_bundle_adjustment_packed(buf, *, P: int, X: int, O: int,

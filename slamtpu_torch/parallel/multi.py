@@ -376,10 +376,13 @@ def make_ba_inputs(n_poses: int, n_points: int, n_obs: int, seed: int = 0,
                    n_free: Optional[int] = None):
     """Synthetic consistent BA problem: noisy poses/points observing exact
     pixels (every array padded to the given sizes). Poses 0 and 1 are
-    constant; with `n_free`, so is every pose past the first 2 + n_free
+    constant. With `n_free`, so is every pose past the first 2 + n_free
     (the constant observers that pad production's P beyond the free
-    window, which the Schur solve takes FREE_CAP of); the draws are the
-    same either way."""
+    window, which the Schur solve takes FREE_CAP of), and the poses (and
+    the true poses returned) are reordered free poses first, as the
+    Estimator orders them for the Schur solve's leading 6 * FREE_CAP
+    block; the observations' pose ids follow. The draws are the same
+    either way."""
     rng = np.random.default_rng(seed)
     intr = np.array([120.0, 118.0, 48.0, 36.0], np.float32)
     poses = rng.normal(0, 0.02, (n_poses, 6)).astype(np.float32)
@@ -417,6 +420,10 @@ def make_ba_inputs(n_poses: int, n_points: int, n_obs: int, seed: int = 0,
     if n_free is not None:
         const[2 + n_free:] = True
     poses_n[const] = poses[const]
+    if n_free is not None:
+        order = np.argsort(const, kind="stable")
+        poses, poses_n, const = poses[order], poses_n[order], const[order]
+        obs_pose = np.argsort(order).astype(np.int32)[obs_pose]
     args = (poses_n.astype(np.float32), const, pts_n.astype(np.float32),
             obs_pose, obs_point, px.astype(np.float32), valid, intr)
     return args, poses.astype(np.float32), pts

@@ -130,12 +130,9 @@ def test_local_bundle_adjustment_matches_jax(kind):
         assert not rt["outliers"][240:].any()
 
 
-def test_packed_layout_matches_jax():
-    """The one-buffer entry point at P = 16 (the estimator's minimum, so
-    the Schur solve runs on the leading 6 * FREE_CAP of 96 rows)."""
-    (poses0, pose_const, points0, obs_pose, obs_point, obs_px, obs_valid,
-     intr) = _case("gross_padded")
-    P, X, O = 16, 128, 512
+def _hand_packed(P, X, O, poses0, pose_const, points0, obs_pose, obs_point,
+                 obs_px, obs_valid, intr):
+    """The packed layout of local_bundle_adjustment_packed, written out."""
     n_p, n_x, n_o = len(poses0), len(points0), len(obs_pose)
     buf = np.zeros(P * 7 + X * 3 + O * 5 + 4, np.float32)
     o = 0
@@ -155,6 +152,27 @@ def test_packed_layout_matches_jax():
     buf[o:o + n_o] = obs_valid
     o += O
     buf[o:o + 4] = intr
+    return buf
+
+
+def test_pack_ba_problem_writes_the_packed_layout():
+    """pack_ba_problem (the Estimator's packer) gives the written-out
+    layout bit for bit."""
+    args = _case("gross_padded")
+    np.testing.assert_array_equal(
+        tba.pack_ba_problem(*args, P=16, X=128, O=512),
+        _hand_packed(16, 128, 512, *args))
+
+
+def test_packed_layout_matches_jax():
+    """The one-buffer entry point at P = 16 (the estimator's minimum, so
+    the Schur solve runs on the leading 6 * FREE_CAP of 96 rows)."""
+    (poses0, pose_const, points0, obs_pose, obs_point, obs_px, obs_valid,
+     intr) = _case("gross_padded")
+    P, X, O = 16, 128, 512
+    n_p = len(poses0)
+    buf = _hand_packed(P, X, O, poses0, pose_const, points0, obs_pose,
+                       obs_point, obs_px, obs_valid, intr)
     kw = dict(P=P, X=X, O=O, iters1=5, iters2=10, repr_eps=5.0)
     rj = jba.local_bundle_adjustment_packed(jnp.asarray(buf), **kw)
     rt = tba.local_bundle_adjustment_packed(torch.from_numpy(buf), **kw)

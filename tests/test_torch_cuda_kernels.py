@@ -169,6 +169,7 @@ def _random_points(h, w, n, seed, p_valid=0.7):
     (376, 1241, 1024, 17, 0.0),    # every point invalid
     (376, 1241, 4096, 17, 0.7),    # many hits a tile, two chunks
     (376, 1241, 4096, 3, 0.7),
+    (376, 1241, 2048, 17, 0.9),    # the dense path's capacity: two chunks
 ])
 def test_suppress_and_nms_bit_exact_extremes(h, w, n, radius, p_valid):
     yx, valid = _random_points(h, w, n, seed=n + radius, p_valid=p_valid)
@@ -617,6 +618,76 @@ def test_lk_level_1d_matches_plain(level, n, min_active, escape_fail):
     np.testing.assert_array_equal(flow_k.cpu().numpy()[~alive, 1],
                                   flow.cpu().numpy()[~alive, 1])
     assert ok_k.sum() > 0.3 * n
+
+
+# -- the dense configuration's shapes (2048 slots, 4 + 1 levels) -----------
+
+@functools.lru_cache(maxsize=None)
+def _dense_pyramids(stereo):
+    """4 + 1-level port pyramids of the dense path's scene (24,000 points):
+    left frames 0 and 1, or frame 0's left and right (stereo)."""
+    scene = make_scene(n_frames=2, height=376, width=1241, n_points=24000,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    ims = scene.frame(0) if stereo else [scene.frame(i)[0] for i in (0, 1)]
+    return tuple(lk_pyramid_impl(torch.from_numpy(im.astype(np.float32))
+                                 .cuda(), levels=4, pad=PAD) for im in ims)
+
+
+@pytest.mark.parametrize("one_d", [False, True])
+@pytest.mark.parametrize("level", [0, 4])
+@pytest.mark.parametrize("min_active,escape_fail", [(16, False), (0, True)])
+def test_lk_level_at_2048_slots_on_a_4_level_pyramid(one_d, level,
+                                                     min_active,
+                                                     escape_fail):
+    """The dense path's shapes: N = 2048 (512 blocks of 4 warps) on level 0
+    and on level 4, which is 24 x 78 at 376 x 1241, so the padded patch
+    (17 + 2 x 6 px a side) clamps at the border for most points. One launch
+    on the mode's counter; ok masks agree on >= 99.5% of the points alive
+    at entry; flows of the points ok in both within 1e-3 px for >= 99% of
+    them and within 2 * lk_epsilon for all (a point whose step straddles
+    lk_epsilon stops one iteration apart); dead points keep their flow; in
+    1-D mode flow_y is 0."""
+    n = 2048
+    pyr1, pyr2 = _dense_pyramids(one_d)
+    d1, d2 = pyr1[level], pyr2[level]
+    hw = pyramid_level_shape(d1, PAD)
+    assert hw == ((376, 1241) if level == 0 else (24, 78))
+    rng = np.random.default_rng(level + 2 * one_d)
+    px = np.stack([rng.uniform(0, 375, n), rng.uniform(0, 1240, n)], -1)
+    p_lvl = np.floor(px / 2.0 ** level).astype(np.int32)
+    if one_d:
+        flow = np.stack([np.zeros(n), rng.normal(-6.0, 4.0, n)
+                         / 2.0 ** level], -1)
+    else:
+        flow = rng.normal(0.0, 1.5, (n, 2)) / 2.0 ** level
+    ok = rng.uniform(size=n) < 0.9
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    p_lvl, flow, ok = t(p_lvl), t(flow.astype(np.float32)), t(ok)
+    kw = dict(hw=hw, window=9, iters=30, eps=1e-2, eig_thresh=1e-4, pad=PAD,
+              min_active=min_active, escape_fail=escape_fail)
+    counter = lk.lk_level_1d if one_d else lk.lk_level
+    level_fn = lk.lk_level_1d if one_d else lk.lk_level
+    plain = lk.lk_level_1d_plain if one_d else lk.lk_level_plain
+    before = counter.launches
+    flow_k, ok_k = level_fn(d1, d2, p_lvl, flow, ok, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    flow_p, ok_p = plain(d1, d2, p_lvl, flow, ok, **kw)
+    alive = ok.cpu().numpy()
+    ok_kn, ok_pn = ok_k.cpu().numpy(), ok_p.cpu().numpy()
+    assert not ok_kn[~alive].any() and not ok_pn[~alive].any()
+    assert (ok_kn == ok_pn)[alive].mean() >= 0.995
+    both = ok_kn & ok_pn
+    d = np.abs(flow_k.cpu().numpy()[both] - flow_p.cpu().numpy()[both])
+    assert (d <= 1e-3).all(-1).mean() >= 0.99 and d.max() <= 2e-2, d.max()
+    kept = flow_k.cpu().numpy()[~alive]
+    if one_d:
+        assert not flow_k[:, 0].any()
+        kept = kept[:, 1]
+    np.testing.assert_array_equal(
+        kept, flow.cpu().numpy()[~alive][..., 1] if one_d
+        else flow.cpu().numpy()[~alive])
+    assert ok_kn.sum() > 0.3 * n
 
 
 @pytest.mark.parametrize("level", [0, 3])
