@@ -143,8 +143,32 @@ Phases, one line each; any failure raises and exits nonzero:
      within 1e-4 relative, outlier masks equal on >= 99.9%, poses and
      points within 1e-4 of the largest magnitude of each) and the JAX
      package's final cost (JAX_WIDE_BA), pose error <= 0.05x the input's;
-     prints the solve's ms and memory peak. P 32 runs only here, not
-     through the entry point.
+     prints the solve's ms and memory peak.
+  20. long_dense: phase 18's scene and Params over 120 frames
+     (LONG_PATHS), so that the 30-keyframe window fills and the Estimator
+     solves at phase 19's P 32 / X 16384 from a map that SLAM built; fed
+     as phase 18 feeds its scene under a LongRunRecord (keyframes made and
+     live, removals, map_filtering's votes, every solve's counts and
+     buckets, the FREE_CAP holds); asserts against the JAX package's CPU
+     run (JAX_LONG): 0 resets, a finite 120-pose trajectory, keyframes
+     made and live within max(2, 10%), metric ATE <= 2x + 0.01 m, the
+     holds' number and largest within max(2, 10%), the level kernel and
+     K2 launched and standalone K1 and the 1-D mode not, every LK cascade
+     sync-free, >= 1 solve at P 32 with X 16384, the largest solve's map
+     points within 10%, and no device-memory leak (memory allocated at
+     the last window's end exceeds that at the second's by no more than
+     the largest solve's own peak). Prints one line a 30-frame window
+     (FPS; p50 of sm.frame, fe.pipe.dispatch, es.ba, es.filter; the BA
+     solves' P / X / O and device ms; memory allocated and its peak) and
+     its P 32 / X 16384 solves beside phase 19's;
+  21. long_slab: bench.py's slab block (the 376x1241 slab scene, 6000
+     points, seed 7, Params(stereo=True, ba_window=30)) over 100 frames,
+     as phase 20, where map filtering votes (kfid >= 20) and the
+     Estimator reaches P 64; asserts phase 20's shared checks, the votes
+     within max(2, 10%), the removed keyframes within 2 and >= 1 solve at
+     P 64; its keyframe decisions follow float rounding, so its counts
+     are held to the range of seven JAX CPU runs (on the scene's images
+     and at six one-rounding-step perturbations of them).
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -2161,6 +2185,19 @@ def _captured_bytes():
     return size(list(DENSE_INPUTS.values()))
 
 
+# The dense city scene's rendered (left, right) frames: frame i does not
+# depend on the scene's length (the poses draw no random numbers), so
+# phase 20 takes phase 18's 60 and renders the rest.
+DENSE_RENDERED = []
+
+
+def _dense_frames(scene):
+    """The frames of the dense city scene `scene`, rendered once."""
+    for i in range(len(DENSE_RENDERED), len(scene)):
+        DENSE_RENDERED.append(scene.frame(i))
+    return DENSE_RENDERED[:len(scene)]
+
+
 def _level_shape(h, w, level):
     """A pyramid level's (H, W): the image ceil-halved `level` times."""
     for _ in range(level):
@@ -2207,7 +2244,7 @@ def phase_dense_path(dev):
                        seed=7, layout="city")
     # Rendered before the timed run (24,000 points take the renderer
     # longer than the port takes a frame).
-    frames = [scene.frame(i) for i in range(len(scene))]
+    frames = _dense_frames(scene)
     params = Params(stereo=True, **DENSE_PARAMS)
     cap, top = params.keypoint_capacity, params.pyramid_levels
     pad = lk.lk_pad(params.window_size)
@@ -2541,6 +2578,439 @@ def phase_wide_ba(dev):
     return dict(P=P, X=X, O=O, ms=ms, peak_bytes=peak, cpu_s=cpu_s)
 
 
+# Phases 20 and 21: bench.py's scenes run long enough that local BA's
+# window fills and map filtering votes. long_dense is phase 18's scene and
+# Params past 60 frames (the poses draw no random numbers, so its first 60
+# frames are phase 18's); long_slab is bench.py's slab block
+# (BENCH_LAYOUT=slab BENCH_BA_WINDOW=30).
+LONG_PATHS = {
+    "long_dense": dict(layout="city", n_points=DENSE_N_POINTS, frames=120,
+                       params=DENSE_PARAMS),
+    "long_slab": dict(layout="slab", n_points=6000, frames=100,
+                      params=dict(ba_window=30)),
+}
+
+
+class LongRunRecord:
+    """Hooks on one SlamManager, of either package (their host classes are
+    the same), that record what the long paths' checks read:
+
+    - solves: each local BA solve's kfid, n_poses, n_free (after the
+      FREE_CAP hold), n_points, n_obs and the (P, X, O) it was padded to,
+      and the frame it was dispatched at;
+    - holds: the free-pose count of each solve that FREE_CAP held;
+    - max_cov: the largest covisibility map (with the new keyframe) before
+      the ba_window cut;
+    - votes: each keyframe that map_filtering examined past its
+      min_cov_score // 2 test: the new keyframe, the examined kfid, n_good
+      (map points with more than 4 observers) and n_total, as the vote
+      counts them when it starts;
+    - removed: each removed keyframe's kfid, frame id, the new keyframe of
+      the map_filtering call that removed it (None outside one) and its
+      rule ("low": under min_cov_score // 2 3D points; "ratio": the vote).
+
+    `on_solve(fn, buf, kw)` (optional) runs each solve in place of
+    fn(buf, **kw); `close()` takes the hooks off."""
+
+    def __init__(self, sm, on_solve=None):
+        self.es = es = sm.mapper.estimator
+        self.mm = mm = sm.map_manager
+        self.mod = mod = sys.modules[type(es).__module__]
+        self.frame = 0
+        self.solves, self.holds, self.votes, self.removed = [], [], [], []
+        self.max_cov = 0
+        self._cache, self._filtering, self._low = None, None, {}
+        params = es.params
+        orig_params = es._get_ba_parameters
+        orig_lba = es.local_bundle_adjustment
+        orig_packed = self._packed = mod.local_bundle_adjustment_packed
+        orig_filter = es.map_filtering
+        orig_get = mm.get_keyframe
+        orig_remove = mm.remove_keyframe
+
+        def get_ba_parameters(frame, covisibility_map, min_cov_score):
+            cache = orig_params(frame, covisibility_map, min_cov_score)
+            self._cache = dict(
+                kfid=frame.kfid, frame=self.frame,
+                n_poses=len(cache["pose_vecs"]),
+                n_free=sum(1 for c in cache["pose_const"] if not c),
+                n_points=len(cache["point_vecs"]),
+                n_obs=len(cache["obs_pose"]))
+            return cache
+
+        def local_bundle_adjustment(new_frame):
+            cov = set(new_frame.get_covisible_map()) | {new_frame.kfid}
+            self.max_cov = max(self.max_cov, len(cov))
+            return orig_lba(new_frame)
+
+        def packed(buf, **kw):
+            self.solves.append(dict(self._cache or {}, P=kw["P"], X=kw["X"],
+                                    O=kw["O"]))
+            if on_solve is not None:
+                return on_solve(orig_packed, buf, kw)
+            return orig_packed(buf, **kw)
+
+        def map_filtering(new_keyframe):
+            self._filtering = new_keyframe.kfid
+            try:
+                return orig_filter(new_keyframe)
+            finally:
+                self._filtering = None
+
+        def get_keyframe(kfid):
+            kf = orig_get(kfid)
+            if self._filtering is None or kf is None:
+                return kf
+            self._low[kfid] = kf.nb_3d_kpts < params.min_cov_score // 2
+            if not self._low[kfid]:
+                n_good = n_total = 0
+                for kp in kf.get_3d_keypoints():
+                    mp = mm.map_points.get(kp.id)
+                    if mp is None:
+                        continue
+                    n_good += mp.get_observers_number() > 4
+                    n_total += 1
+                self.votes.append(dict(new=self._filtering, kfid=kfid,
+                                       n_good=n_good, n_total=n_total))
+            return kf
+
+        def remove_keyframe(kfid):
+            kf = mm.frames_map.get(kfid)
+            if kf is not None:
+                rule = None
+                if self._filtering is not None:
+                    rule = "low" if self._low.get(kfid) else "ratio"
+                self.removed.append(dict(kfid=kfid, frame_id=kf.id,
+                                         new=self._filtering, rule=rule))
+            return orig_remove(kfid)
+
+        self._log = _FreeCapLog()
+        logging.getLogger(mod.log.name).addHandler(self._log)
+        es._get_ba_parameters = get_ba_parameters
+        es.local_bundle_adjustment = local_bundle_adjustment
+        mod.local_bundle_adjustment_packed = packed
+        es.map_filtering = map_filtering
+        mm.get_keyframe = get_keyframe
+        mm.remove_keyframe = remove_keyframe
+
+    def close(self):
+        self.mod.local_bundle_adjustment_packed = self._packed
+        logging.getLogger(self.mod.log.name).removeHandler(self._log)
+        for obj, names in ((self.es, ("_get_ba_parameters",
+                                      "local_bundle_adjustment",
+                                      "map_filtering")),
+                           (self.mm, ("get_keyframe", "remove_keyframe"))):
+            for name in names:
+                obj.__dict__.pop(name, None)
+        self.holds = list(self._log.free)
+
+    def summary(self):
+        """The record as JSON-ready fields; call after close()."""
+        mm = self.mm
+        frames = {kfid: f.id for kfid, f in mm.frames_map.items()}
+        frames.update({r["kfid"]: r["frame_id"] for r in self.removed})
+        return dict(
+            keyframes_made=mm.current_keyframe_id,
+            keyframes_live=mm.nb_keyframes,
+            keyframe_frames=[frames[k] for k in sorted(frames)],
+            removed=self.removed, votes=self.votes,
+            vote_kfids=sorted({v["new"] for v in self.votes}),
+            solves=self.solves, free_cap_holds=self.holds,
+            max_covisibility=self.max_cov)
+
+
+# The JAX package's CPU runs of phases 20 and 21
+# (scripts/cpu_path_reference.py jax long_dense|long_slab [--perturb P];
+# PERF.md): metric ATE m of the run on the scene's own images (R), and,
+# one entry a run, keyframes made and live, the number of FREE_CAP holds
+# and the largest free count held, the map_filtering votes, the removed
+# keyframes and the largest pose bucket P; R's largest solve's map points.
+# long_slab's keyframe decisions follow float rounding from frame 1 on (an
+# LK point of 592 converges 1.69 px apart in the two packages), so its
+# counts are held to the range of R and six runs whose images were moved
+# by one float32 rounding step (--perturb 1-6); long_dense's to R alone.
+JAX_LONG = {
+    "long_dense": dict(ate_m=0.094704, largest_points=12323, made=[24],
+                       live=[24], holds=[15], largest_held=[23], votes=[82],
+                       removed=[0], max_P=[32]),
+    "long_slab": dict(ate_m=0.103820, largest_points=2099,
+                      made=[35, 38, 35, 34, 39, 37, 36],
+                      live=[35, 38, 35, 34, 39, 37, 36],
+                      holds=[8, 10, 10, 8, 13, 10, 12],
+                      largest_held=[11, 10, 12, 12, 11, 10, 12],
+                      votes=[209, 285, 221, 189, 238, 297, 280],
+                      removed=[0, 0, 0, 0, 0, 0, 0],
+                      max_P=[64, 64, 64, 64, 64, 64, 64]),
+}
+# Frames a window of the long paths' per-window lines.
+LONG_WINDOW = 30
+
+
+def _within(got, refs):
+    """The long paths' count tolerance: within max(2, 10%) of the range of
+    the reference runs `refs`."""
+    lo, hi = min(refs), max(refs)
+    return lo - max(2, 0.1 * lo) <= got <= hi + max(2, 0.1 * hi)
+
+
+def _long_path(dev, name):
+    """Phases 20 and 21's run: LONG_PATHS[name]'s scene through
+    SlamManager.add_stereo_image with Params(stereo=True, **params), then
+    finish(), every tracked frame's LK cascade under
+    set_sync_debug_mode("error"), with a LongRunRecord whose solves are
+    timed with CUDA events. Prints one line a LONG_WINDOW-frame window
+    (FPS; the p50 of sm.frame, fe.pipe.dispatch, es.ba and es.filter; its
+    BA solves' (P, X, O) and device ms; torch.cuda.memory_allocated() at
+    its end and max_memory_allocated() within it) and the run's line;
+    times the largest bucket's last solve again alone (median of 3) with
+    its memory peak. Asserts what both long paths share against
+    JAX_LONG[name]: no reset, a finite trajectory of every frame,
+    keyframes made and live (_within), metric ATE <= 2x R's + 0.01 m, the
+    FREE_CAP holds' number and largest free count (_within), the level
+    kernel and K2 launched and standalone K1 and the 1-D mode not, every
+    LK cascade sync-free, and no device-memory leak: the memory allocated
+    at the end of the last window exceeds that at the end of the second by
+    no more than the largest solve's own peak. Returns (launches, record
+    summary, solves with their ms)."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.datasets.synthetic import make_scene
+    from slamtpu_torch.eval.ate import ate_rmse
+    from slamtpu_torch.ops import frontend_step as fs_mod
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    cfg, ref = LONG_PATHS[name], JAX_LONG[name]
+    scene = make_scene(n_frames=cfg["frames"], height=376, width=1241,
+                       n_points=cfg["n_points"], stereo=True, baseline=0.54,
+                       seed=7, layout=cfg["layout"])
+    if name == "long_dense":
+        frames = _dense_frames(scene)
+    else:
+        frames = [scene.frame(i) for i in range(len(scene))]
+    saver = ReplaySaver()
+    sm = SlamManager(Params(stereo=True, **cfg["params"]), scene.camera,
+                     right_camera=scene.right_camera, slam_io=saver,
+                     device=dev)
+    timed, big = [], {}
+
+    def on_solve(fn, buf, kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(buf, **kw)
+        end.record()
+        timed.append(dict(P=kw["P"], X=kw["X"], O=kw["O"],
+                          events=(start, end)))
+        # Only the largest solve's input stays referenced (for its peak
+        # below), so the windows' memory holds no buffer of this phase's.
+        if (kw["P"], kw["X"], kw["O"]) >= big.get("key", (0, 0, 0)):
+            big.update(key=(kw["P"], kw["X"], kw["O"]), buf=buf, kw=kw)
+        return out
+
+    cascade_orig = fs_mod.fb_cascade
+    no_sync_cascades = []
+    record = LongRunRecord(sm, on_solve=on_solve)
+    fs_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
+    stages = ("sm.frame", "fe.pipe.dispatch", "es.ba", "es.filter")
+    windows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TIMERS.reset()
+    _reset_counts()
+    resets = _counting_resets(sm)
+    mark = {"t": time.perf_counter(), "i": 0,
+            "n": {k: 0 for k in stages}, "solves": 0}
+
+    def close_window(i):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        w = dict(frames=f"{mark['i'] + 1}-{i}", seconds=t - mark["t"],
+                 fps=round((i - mark["i"]) / (t - mark["t"]), 3))
+        for k in stages:
+            d = TIMERS.durations.get(k, [])[mark["n"][k]:]
+            w[k + ".p50_ms"] = (round(1e3 * sorted(d)[len(d) // 2], 3)
+                                if d else None)
+            mark["n"][k] += len(d)
+        w["ba"] = [dict(P=c["P"], X=c["X"], O=c["O"],
+                        ms=round(c["events"][0].elapsed_time(
+                            c["events"][1]), 3))
+                   for c in timed[mark["solves"]:]]
+        mark["solves"] = len(timed)
+        w["allocated_mib"] = round(torch.cuda.memory_allocated() / 2**20, 1)
+        w["peak_mib"] = round(torch.cuda.max_memory_allocated() / 2**20, 1)
+        w["allocated"] = torch.cuda.memory_allocated()
+        windows.append(w)
+        torch.cuda.reset_peak_memory_stats()
+        mark.update(t=time.perf_counter(), i=i)
+        print(f"[{name}] window " + json.dumps(
+            {k: v for k, v in w.items() if k not in ("allocated",
+                                                       "seconds")},
+            separators=(",", ":")), flush=True)
+
+    t0 = time.perf_counter()
+    try:
+        for i in range(len(scene)):
+            if i and i % LONG_WINDOW == 0:
+                close_window(i)
+            record.frame = i
+            sm.add_stereo_image(*frames[i], float(scene.timestamps[i]))
+        sm.finish()
+        close_window(len(scene))
+    finally:
+        fs_mod.fb_cascade = cascade_orig
+        record.close()
+    t1 = time.perf_counter()
+    launches = _read_counts()
+    rec = record.summary()
+    summary = TIMERS.summary()
+
+    def calls(stage):
+        return summary.get(stage, {}).get("calls", 0)
+
+    # The largest solve again, alone: its memory peak over what was
+    # allocated before it.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    record._packed(big["buf"], **big["kw"])
+    torch.cuda.synchronize()
+    big_peak = torch.cuda.max_memory_allocated() - base
+    big_ms = _median_ms(lambda: record._packed(big["buf"], **big["kw"]),
+                        reps=3, warmup=1)
+
+    est = saver.trajectory_xyz().astype(np.float64)
+    gt = np.stack([q[:3, 3] for q in scene.poses_wc])
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"{name}: trajectory {est.shape} not finite / "
+                             f"not {gt.shape}")
+    ate = ate_rmse(est, gt, align_scale=False)
+    solves = [dict(s, ms=round(c["events"][0].elapsed_time(c["events"][1]),
+                               3))
+              for s, c in zip(rec["solves"], timed)]
+    largest = max(rec["solves"], key=lambda s: s["n_points"])
+    growth = windows[-1]["allocated"] - windows[1]["allocated"]
+    # Frames a second after the first window, the final drain included.
+    fps = (len(scene) - LONG_WINDOW) / sum(w["seconds"]
+                                           for w in windows[1:])
+    _log(name, frames=len(scene), total_s=f"{t1 - t0:.3f}",
+         fps_after_30=f"{fps:.3f}", resets=resets["n"],
+         keyframes_made=rec["keyframes_made"],
+         jax_made=json.dumps(ref["made"], separators=(",", ":")),
+         keyframes_live=rec["keyframes_live"],
+         jax_live=json.dumps(ref["live"], separators=(",", ":")),
+         ate_m=f"{ate:.5f}", jax_ate_m=f"{ref['ate_m']:.5f}",
+         removed=json.dumps([(r["kfid"], r["rule"]) for r in rec["removed"]],
+                            separators=(",", ":")),
+         jax_removed=json.dumps(ref["removed"], separators=(",", ":")),
+         votes=len(rec["votes"]),
+         jax_votes=json.dumps(ref["votes"], separators=(",", ":")),
+         vote_kfids=json.dumps(rec["vote_kfids"], separators=(",", ":")),
+         free_poses_held=json.dumps(rec["free_cap_holds"],
+                                    separators=(",", ":")),
+         jax_holds=json.dumps(ref["holds"], separators=(",", ":")),
+         jax_largest_held=json.dumps(ref["largest_held"],
+                                     separators=(",", ":")),
+         max_covisibility=rec["max_covisibility"],
+         ba_solves=len(solves), ba_applied=calls("es.ba_apply"),
+         largest_solve=json.dumps({k: largest[k] for k in (
+             "frame", "n_poses", "n_free", "n_points", "n_obs", "P", "X",
+             "O")}, separators=(",", ":")),
+         jax_largest_points=ref["largest_points"],
+         largest_bucket=json.dumps(big["key"], separators=(",", ":")),
+         largest_bucket_alone_ms=f"{big_ms:.3f}",
+         largest_bucket_peak_mib=f"{big_peak / 2**20:.1f}",
+         memory_growth_mib=f"{growth / 2**20:.1f}",
+         dispatches=calls("fe.pipe.dispatch"),
+         cascades_without_sync=len(no_sync_cascades),
+         launches=json.dumps(launches, separators=(",", ":")), card=f"'{SMI}'")
+    print(f"[{name}] ba_solves " + json.dumps(
+        [(s["frame"], s["n_poses"], s["n_free"], s["n_points"], s["n_obs"],
+          s["P"], s["X"], s["O"], s["ms"]) for s in solves],
+        separators=(",", ":")), flush=True)
+    print(f"[{name}] stage_timers " + json.dumps(_stage_summary(
+        summary, ("fe.pipe.", "mp.kf_async.", "es.", "sm."))), flush=True)
+
+    if resets["n"]:
+        raise AssertionError(f"{name}: {resets['n']} reset(s)")
+    for key, got in (("made", rec["keyframes_made"]),
+                     ("live", rec["keyframes_live"])):
+        if not _within(got, ref[key]):
+            raise AssertionError(f"{name}: {got} keyframes {key}, expected "
+                                 f"{ref[key]} within max(2, 10%)")
+    ate_bound = 2.0 * ref["ate_m"] + 0.01
+    if not ate <= ate_bound:
+        raise AssertionError(f"{name}: metric ATE {ate:.4f} m > "
+                             f"{ate_bound:.4f} m")
+    holds = rec["free_cap_holds"]
+    if not (_within(len(holds), ref["holds"])
+            and _within(max(holds, default=0), ref["largest_held"])):
+        raise AssertionError(f"{name}: FREE_CAP held {holds} free poses, "
+                             f"expected {ref['holds']} holds, the largest "
+                             f"{ref['largest_held']}, within max(2, 10%)")
+    _check_path_kernels(name, launches)
+    if len(no_sync_cascades) < calls("fe.pipe.dispatch"):
+        raise AssertionError(f"{name}: {len(no_sync_cascades)} LK cascades "
+                             f"ran under sync debug mode for "
+                             f"{calls('fe.pipe.dispatch')} dispatches")
+    if not growth <= big_peak:
+        raise AssertionError(f"{name}: device memory grew by {growth} bytes "
+                             f"from the second window's end to the last's, "
+                             f"more than the largest solve's peak "
+                             f"{big_peak}")
+    return launches, rec, solves
+
+
+def phase_long_dense(dev, wide=None):
+    """Phase 20: long_dense (phase 18's scene and Params over 120 frames)
+    through _long_path. Asserts besides >= 1 solve at P 32 with X 16384
+    and the largest solve's map points within 10% of the JAX package's.
+    Prints its P 32 / X 16384 solves beside phase 19's standalone solve
+    (`wide`, phase_wide_ba's result)."""
+    launches, rec, solves = _long_path(dev, "long_dense")
+    ref = JAX_LONG["long_dense"]
+    wide_bucket = [s for s in solves if (s["P"], s["X"]) == (32, 16384)]
+    _log("long_dense", card=f"'{SMI}'",
+         p32_x16384_ms=json.dumps([(s["O"], s["n_points"], s["ms"])
+                                   for s in wide_bucket],
+                                  separators=(",", ":")),
+         phase19_ms=_fmt(wide["ms"]) if wide else "none",
+         phase19_bucket=(f"P={wide['P']},X={wide['X']},O={wide['O']}"
+                         if wide else "none"))
+    if not wide_bucket:
+        raise AssertionError("long_dense: no Estimator solve at P 32 with "
+                             "X 16384")
+    points = max(s["n_points"] for s in rec["solves"])
+    if not abs(points - ref["largest_points"]) <= 0.1 * ref["largest_points"]:
+        raise AssertionError(f"long_dense: the largest solve has {points} "
+                             f"map points, expected {ref['largest_points']}"
+                             f" within 10%")
+    return launches
+
+
+def phase_long_slab(dev):
+    """Phase 21: long_slab (bench.py's slab block over 100 frames) through
+    _long_path. Asserts besides the map_filtering votes (_within), the
+    removed keyframes within 2 of the JAX package's runs, and >= 1 solve
+    at P 64 if R reached P 64."""
+    launches, rec, _ = _long_path(dev, "long_slab")
+    ref = JAX_LONG["long_slab"]
+    if not _within(len(rec["votes"]), ref["votes"]):
+        raise AssertionError(f"long_slab: {len(rec['votes'])} map_filtering "
+                             f"votes, expected {ref['votes']} within "
+                             f"max(2, 10%)")
+    removed = len(rec["removed"])
+    if not min(ref["removed"]) - 2 <= removed <= max(ref["removed"]) + 2:
+        raise AssertionError(f"long_slab: {removed} keyframes removed, "
+                             f"expected {ref['removed']} +- 2")
+    max_p = max(s["P"] for s in rec["solves"])
+    if ref["max_P"][0] >= 64 and max_p < 64:
+        raise AssertionError(f"long_slab: no solve at P 64 (largest P "
+                             f"{max_p})")
+    return launches
+
+
 # Floors of the mesh phase: tracked points a sequence (of 1024) in both
 # tracking steps, and P3P inliers a sequence.
 MESH_FLOORS = {"tracked": 900, "p3p_inliers": 700}
@@ -2570,7 +3040,7 @@ def main() -> int:
          torch_version=torch.__version__, cuda=torch.version.cuda)
     print(f"[device] nvidia-smi: {smi}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     kernels.library()
     _log("build", seconds=f"{time.perf_counter() - t0:.2f}",
          nvcc_seconds=f"{kernels.build_seconds:.2f}")
@@ -2595,7 +3065,10 @@ def main() -> int:
              "mesh": phase_mesh(dev),
              "dense_wide_ba": phase_dense_path(dev)}
     dense = phase_dense_kernels()
-    phase_wide_ba(dev)
+    wide = phase_wide_ba(dev)
+    paths["long_dense"] = phase_long_dense(dev, wide)
+    DENSE_RENDERED.clear()
+    paths["long_slab"] = phase_long_slab(dev)
     # Standalone K1's headline numbers are at the shape its path gives it
     # (subpixel refinement); phase 3's LK shapes stay beside them.
     lk_shapes = {k: k1[k] for k in ("ms", "device_ms", "plain_ms",
@@ -2617,6 +3090,7 @@ def main() -> int:
         entry["launches_by_path"] = {path: counts[kernel]
                                      for path, counts in paths.items()}
 
+    _log("smoke", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,9 +2,10 @@
 and print its result as one JSON line (`RESULT {...}`).
 
     JAX_PLATFORMS=cpu python scripts/cpu_path_reference.py jax|torch \
-        mono|real|default|default60|dense_wide_ba|variant|nocarry|\
-        speculate|brief|reference|threaded|checkpoint [--threads N] \
-        [--seed S] \
+        mono|real|default|default60|dense_wide_ba|long_dense|long_slab|\
+        variant|nocarry|speculate|brief|reference|threaded|checkpoint \
+        [--threads N] \
+        [--seed S] [--perturb P] \
         [--init-pose JSON]
 
 mono: bench.py's 60-frame 376x1241 city scene (6000 points, seed 7), left
@@ -32,9 +33,27 @@ keypoints in a capacity of 2048, 4 + 1 pyramid levels, a 30-keyframe BA
 window), on the 60-frame city scene at `DENSE_N_POINTS` (24000) scene
 points so that the first keyframe admits >= 1,800 detections; fed as
 default60 (`chip_smoke.py` phase 18, whose constants these are).
+long_dense: dense_wide_ba run to 120 frames (the same scene, 24000 points,
+seed 7, and `Params(stereo=True, **DENSE_PARAMS)`), where local BA solves
+at P 32 / X 16384 with ~10k map points (`chip_smoke.py` phase 20).
+long_slab: bench.py's slab block (`BENCH_LAYOUT=slab BENCH_BA_WINDOW=30`):
+the 376x1241 slab scene (6000 points, seed 7), 100 frames, with
+`Params(stereo=True, ba_window=30)`, where map filtering votes on kfid >= 20
+and local BA reaches P 64 (`chip_smoke.py` phase 21). Both are fed as
+default60 and print, beside the common fields, chip_smoke.py's
+`LongRunRecord`: keyframes made and live, the keyframes' frame ids, the
+removed keyframes in order (kfid, frame id, rule), every map_filtering
+vote (new keyframe, examined kfid, n_good, n_total), every BA solve's
+(n_poses, n_free, n_points, n_obs) and (P, X, O), the FREE_CAP holds and
+the largest covisibility map before the ba_window cut.
 --seed S builds the city scene from scene seed S in place of 7 (every route
 but real); phase 16 holds the port to the JAX package's default60 runs on
 seeds 8, 9 and 11.
+--perturb P (the stereo routes) multiplies every pixel of both images by
+1 + u, u uniform in +-2^-23 (one float32 rounding step) drawn from seed P:
+a change of the size by which float32 sums in another order differ, so
+runs at several P show how far rounding alone moves a route's counts
+(phase 21 holds the port to the spread of long_slab's runs).
 threaded: bench.py's threaded mode (`chip_smoke.py` phase 14): the
 60-frame scene with `Params(stereo=True, do_local_bundle_adjustment=True,
 map_filtering=True, sequential=False)`, fed as bench.py feeds it (15 frames
@@ -81,8 +100,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 # The dense_wide_ba path's Params beside stereo=True and its scene's points
-# are chip_smoke.py phase 18's.
-from chip_smoke import DENSE_N_POINTS, DENSE_PARAMS  # noqa: E402
+# are chip_smoke.py phase 18's; the long paths' are phases 20 and 21's.
+from chip_smoke import (DENSE_N_POINTS, DENSE_PARAMS, LONG_PATHS,  # noqa
+                        LongRunRecord)
 
 
 def _package(name):
@@ -124,6 +144,7 @@ STEREO_PATHS = {
     "reference": dict(fused_front_end=False, fused_stereo=False,
                       do_local_matching=True),
     "dense_wide_ba": DENSE_PARAMS,
+    **{name: long["params"] for name, long in LONG_PATHS.items()},
 }
 
 
@@ -158,7 +179,8 @@ def _hook_init_pose(fe, inject):
     return rec
 
 
-def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
+def run(pkg_name: str, path: str, init_pose=None, seed: int = 7,
+        perturb=None) -> dict:
     k = _package(pkg_name)
     t0 = time.time()
     saver = k["ReplaySaver"]()
@@ -176,9 +198,13 @@ def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
     else:
         n = 60 if path in ("mono", "default60", "dense_wide_ba") else 30
         n_points = DENSE_N_POINTS if path == "dense_wide_ba" else 6000
+        layout = "city"
+        if path in LONG_PATHS:
+            n, n_points, layout = (LONG_PATHS[path][f] for f in
+                                   ("frames", "n_points", "layout"))
         scene = k["make_scene"](n_frames=n, height=376, width=1241,
                                 n_points=n_points, stereo=True, baseline=0.54,
-                                seed=seed, layout="city")
+                                seed=seed, layout=layout)
         gt = np.stack([q[:3, 3] for q in scene.poses_wc])
         if path == "mono":
             p = k["Params"](stereo=False)
@@ -189,10 +215,16 @@ def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
         else:
             p = k["Params"](stereo=True, **STEREO_PATHS.get(path, {}))
             sm = k["manager"](p, scene.camera, scene.right_camera, saver)
+            noise = (None if perturb is None
+                     else np.random.default_rng(perturb))
 
             def feed(i):
-                sm.add_stereo_image(*scene.frame(i),
-                                    float(scene.timestamps[i]))
+                pair = scene.frame(i)
+                if noise is not None:
+                    pair = [(img * (1.0 + noise.uniform(
+                        -2.0**-23, 2.0**-23, img.shape))).astype(np.float32)
+                        for img in pair]
+                sm.add_stereo_image(*pair, float(scene.timestamps[i]))
     resets = [0]
     reset = sm.reset
 
@@ -203,10 +235,13 @@ def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
     sm.reset = counted_reset
     init_rec = _hook_init_pose(sm.front_end, init_pose)
     merges = _count_merges(sm.map_manager)
+    record = LongRunRecord(sm) if path in LONG_PATHS else None
     k["TIMERS"].reset()
     init_at = None
     per_frame = []
     for i in range(n):
+        if record is not None:
+            record.frame = i
         feed(i)
         if init_at is None and p.vision_initialized:
             init_at = i + 1
@@ -215,9 +250,12 @@ def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
             sm.map_manager.nb_keyframes,
             sum(1 for mp in sm.map_manager.map_points.values() if mp.is_3d)))
     sm.finish()
+    if record is not None:
+        record.close()
     est = saver.trajectory_xyz().astype(np.float64)
     out = dict(
-        package=pkg_name, path=path, seed=seed, resets=resets[0],
+        package=pkg_name, path=path, seed=seed, perturb=perturb,
+        resets=resets[0],
         initialized=bool(p.vision_initialized), initialized_at_frame=init_at,
         keyframes=sm.map_manager.nb_keyframes,
         points_3d=sum(1 for mp in sm.map_manager.map_points.values()
@@ -247,6 +285,9 @@ def run(pkg_name: str, path: str, init_pose=None, seed: int = 7) -> dict:
     out["init_pose_cw"] = init_rec.get("solved")
     out["init_pose_injected"] = init_pose is not None
     out["per_frame"] = per_frame
+    if record is not None:
+        out.update(record.summary())
+        out["es.filter"] = summary.get("es.filter", {}).get("calls", 0)
     out["seconds"] = round(time.time() - t0, 1)
     return out
 
@@ -390,6 +431,9 @@ def main():
                          "from in place of the five-point solve's")
     ap.add_argument("--seed", type=int, default=7,
                     help="scene seed of the city scene")
+    ap.add_argument("--perturb", type=int, default=None,
+                    help="seed of a one-rounding-step image perturbation "
+                         "(the stereo routes)")
     args = ap.parse_args()
     threads = None
     if args.package == "torch":
@@ -401,7 +445,8 @@ def main():
     elif args.path == "checkpoint":
         result = run_checkpoint(args.package, args.seed)
     else:
-        result = run(args.package, args.path, args.init_pose, args.seed)
+        result = run(args.package, args.path, args.init_pose, args.seed,
+                     args.perturb)
     # torch's CPU thread count (the port only; null for the JAX package)
     # and the cores the process may use.
     result["threads"] = threads
