@@ -169,6 +169,17 @@ Phases, one line each; any failure raises and exits nonzero:
      P 64; its keyframe decisions follow float rounding, so its counts
      are held to the range of seven JAX CPU runs (on the scene's images
      and at six one-rounding-step perturbations of them).
+  22. long_slab_threaded: phase 21's scene and Params with
+     sequential=False, fed as phase 14 feeds its scene, then wait() and
+     finish(), under a LongRunRecord that counts map filtering's breaks
+     on new_kf_available at each site; asserts no dead or stalled worker,
+     0 resets, keyframes made and live within the JAX package's threaded
+     CPU runs' range widened by max(2, 10%), >= 1 vote run to its end, a
+     solve at P 64 (P 32 if a JAX run never reached 64), ATE <= 2x their
+     largest + 0.01 m, each removal's rule and counts, map_invariants,
+     the kernels and no device-memory growth; prints the votes and
+     breaks, the FPS after frame 15, what wait() left and each thread's
+     stage timers.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -1632,11 +1643,15 @@ JAX_CHECKPOINT_RESUMED_ERR_M = 0.09706
 # Seconds a threaded phase may wait for the workers (for a frame to be
 # taken up, for the queues to empty) before it fails as stalled.
 THREADED_DEADLINE_S = 300.0
+# Frames that bench.py's threaded feed hands over one at a time (its
+# warm-up); FPS counts the frames after them.
+THREADED_WARM = 15
 
 
-def _until(sm, done, what):
-    """Poll done() while every worker thread of `sm` lives; fail on a dead
-    worker or a stall, never hang."""
+def _until(sm, done, what, watch=None):
+    """Poll done() while every worker thread of `sm` lives, calling
+    watch() (optional) at each poll; fail on a dead worker or a stall,
+    never hang."""
     deadline = time.perf_counter() + THREADED_DEADLINE_S
     while not done():
         dead = [i for i, t in enumerate(sm._threads) if not t.is_alive()]
@@ -1645,7 +1660,53 @@ def _until(sm, done, what):
                                  f"waiting for {what}")
         if time.perf_counter() > deadline:
             raise AssertionError(f"threaded: stalled waiting for {what}")
+        if watch is not None:
+            watch()
         time.sleep(0.002)
+
+
+def feed_threaded(sm, frames, timestamps, on_frame=None, sync=None):
+    """bench.py's threaded feed (bench.py:184-197) of `frames` (left,
+    right pairs) into a threaded SlamManager of either package: the first
+    THREADED_WARM frames one at a time, each taken up before the next,
+    then at most 2 frames queued, then the queues drained and wait();
+    every wait under _until's deadline. Calls on_frame(i) (optional)
+    before frame i goes in. Returns the perf_counter() times at frame
+    THREADED_WARM and after wait() (each after sync(), optional) and the
+    largest estimator queue seen."""
+    peak = {"es_queue": 0}
+    est = sm.mapper.estimator
+
+    def watch():
+        peak["es_queue"] = max(peak["es_queue"], len(est.frame_queue))
+
+    sync = sync or (lambda: None)
+    t_warm = None
+    for i, (left, right) in enumerate(frames):
+        if on_frame is not None:
+            on_frame(i)
+        if i < THREADED_WARM:
+            sm.add_stereo_image(left, right, float(timestamps[i]))
+            _until(sm, lambda: sm.get_queue_size() == 0, f"frame {i}",
+                   watch)
+            continue
+        if i == THREADED_WARM:
+            sync()
+            t_warm = time.perf_counter()
+        _until(sm, lambda: sm.get_queue_size() < 2, f"room for frame {i}",
+               watch)
+        sm.add_stereo_image(left, right, float(timestamps[i]))
+    _until(sm, lambda: not (sm.get_queue_size() or sm.mapper.keyframe_queue
+                            or est.frame_queue),
+           "the queues to drain", watch)
+    sm.wait()
+    sync()
+    t_end = time.perf_counter()
+    alive = [i for i, t in enumerate(sm._threads) if t.is_alive()]
+    if alive:
+        raise AssertionError(f"threaded: worker thread(s) {alive} outlived "
+                             "wait()")
+    return t_warm, t_end, peak["es_queue"]
 
 
 def phase_threaded_path(dev):
@@ -1677,30 +1738,10 @@ def phase_threaded_path(dev):
     _reset_counts()
     ks_mod.keyframe_step.launches = 0
     ks_mod.keyframe_step_carry.launches = 0
-    warm = 15
     t0 = time.perf_counter()
-    # bench.py:184-197: the warm-up frames one at a time, then at most 2
-    # frames queued; FPS over frames 16-60 with the final wait() included.
-    for i, (left, right) in enumerate(frames):
-        if i < warm:
-            sm.add_stereo_image(left, right, float(scene.timestamps[i]))
-            _until(sm, lambda: sm.get_queue_size() == 0, f"frame {i}")
-            continue
-        if i == warm:
-            torch.cuda.synchronize()
-            t_warm = time.perf_counter()
-        _until(sm, lambda: sm.get_queue_size() < 2, f"room for frame {i}")
-        sm.add_stereo_image(left, right, float(scene.timestamps[i]))
-    _until(sm, lambda: not (sm.get_queue_size() or sm.mapper.keyframe_queue
-                            or sm.mapper.estimator.frame_queue),
-           "the queues to drain")
-    sm.wait()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    alive = [i for i, t in enumerate(sm._threads) if t.is_alive()]
-    if alive:
-        raise AssertionError(f"threaded: worker thread(s) {alive} outlived "
-                             "wait()")
+    # FPS over frames 16-60 with the final wait() included.
+    t_warm, t1, _ = feed_threaded(sm, frames, scene.timestamps,
+                                  sync=torch.cuda.synchronize)
     launches = _read_counts()
     summary = TIMERS.summary()
 
@@ -1715,7 +1756,7 @@ def phase_threaded_path(dev):
     ate = ate_rmse(est, gt, align_scale=False)
     n_kf = sm.map_manager.nb_keyframes
     kf_ids = sorted(f.id for f in sm.map_manager.frames_map.values())
-    fps = (len(frames) - warm) / (t1 - t_warm)
+    fps = (len(frames) - THREADED_WARM) / (t1 - t_warm)
     FPS["threaded"] = fps
     THREADED.update(keyframes=n_kf, keyframe_ids=kf_ids, ate_m=ate,
                     fps_after_15=fps, resets=resets["n"],
@@ -2604,22 +2645,41 @@ class LongRunRecord:
     - votes: each keyframe that map_filtering examined past its
       min_cov_score // 2 test: the new keyframe, the examined kfid, n_good
       (map points with more than 4 observers) and n_total, as the vote
-      counts them when it starts;
+      counts them when it starts; `broken` (the inner break on
+      `new_kf_available` cut it; `partial` holds the (n_good, n_total) it
+      had reached) and `removed`;
+    - breaks: each break of the vote on `new_kf_available`, by site
+      ("outer": before an examined keyframe, with the kfid it would have
+      examined; "inner": inside a keyframe's keypoint loop, with the
+      partial (n_good, n_total));
     - removed: each removed keyframe's kfid, frame id, the new keyframe of
-      the map_filtering call that removed it (None outside one) and its
-      rule ("low": under min_cov_score // 2 3D points; "ratio": the vote).
+      the map_filtering call that removed it (None outside one), its rule
+      ("low": under min_cov_score // 2 3D points; "ratio": the vote) and
+      the counts the rule read (nb_3d; n_good and n_total).
 
+    The hooks run on whichever thread calls them (the estimator thread in
+    threaded mode) and write under one lock; only the thread inside
+    map_filtering records votes and removals. The breaks are read through
+    a property on the estimator's class (the instance moves to a subclass
+    until close()), which tells the vote's two reads of
+    `new_kf_available` apart by their lines in map_filtering's source.
     `on_solve(fn, buf, kw)` (optional) runs each solve in place of
     fn(buf, **kw); `close()` takes the hooks off."""
 
     def __init__(self, sm, on_solve=None):
+        import inspect
+        import threading
+
         self.es = es = sm.mapper.estimator
         self.mm = mm = sm.map_manager
         self.mod = mod = sys.modules[type(es).__module__]
         self.frame = 0
         self.solves, self.holds, self.votes, self.removed = [], [], [], []
+        self.breaks = []
         self.max_cov = 0
+        self._lock = threading.Lock()
         self._cache, self._filtering, self._low = None, None, {}
+        self._filter_thread = None
         params = es.params
         orig_params = es._get_ba_parameters
         orig_lba = es.local_bundle_adjustment
@@ -2628,29 +2688,37 @@ class LongRunRecord:
         orig_get = mm.get_keyframe
         orig_remove = mm.remove_keyframe
 
+        def in_filtering():
+            return (self._filtering is not None
+                    and threading.get_ident() == self._filter_thread)
+
         def get_ba_parameters(frame, covisibility_map, min_cov_score):
             cache = orig_params(frame, covisibility_map, min_cov_score)
-            self._cache = dict(
-                kfid=frame.kfid, frame=self.frame,
-                n_poses=len(cache["pose_vecs"]),
-                n_free=sum(1 for c in cache["pose_const"] if not c),
-                n_points=len(cache["point_vecs"]),
-                n_obs=len(cache["obs_pose"]))
+            with self._lock:
+                self._cache = dict(
+                    kfid=frame.kfid, frame=self.frame,
+                    n_poses=len(cache["pose_vecs"]),
+                    n_free=sum(1 for c in cache["pose_const"] if not c),
+                    n_points=len(cache["point_vecs"]),
+                    n_obs=len(cache["obs_pose"]))
             return cache
 
         def local_bundle_adjustment(new_frame):
             cov = set(new_frame.get_covisible_map()) | {new_frame.kfid}
-            self.max_cov = max(self.max_cov, len(cov))
+            with self._lock:
+                self.max_cov = max(self.max_cov, len(cov))
             return orig_lba(new_frame)
 
         def packed(buf, **kw):
-            self.solves.append(dict(self._cache or {}, P=kw["P"], X=kw["X"],
-                                    O=kw["O"]))
+            with self._lock:
+                self.solves.append(dict(self._cache or {}, P=kw["P"],
+                                        X=kw["X"], O=kw["O"]))
             if on_solve is not None:
                 return on_solve(orig_packed, buf, kw)
             return orig_packed(buf, **kw)
 
         def map_filtering(new_keyframe):
+            self._filter_thread = threading.get_ident()
             self._filtering = new_keyframe.kfid
             try:
                 return orig_filter(new_keyframe)
@@ -2659,30 +2727,87 @@ class LongRunRecord:
 
         def get_keyframe(kfid):
             kf = orig_get(kfid)
-            if self._filtering is None or kf is None:
+            if kf is None or not in_filtering():
                 return kf
-            self._low[kfid] = kf.nb_3d_kpts < params.min_cov_score // 2
-            if not self._low[kfid]:
+            low = kf.nb_3d_kpts < params.min_cov_score // 2
+            vote = None
+            if not low:
                 n_good = n_total = 0
-                for kp in kf.get_3d_keypoints():
-                    mp = mm.map_points.get(kp.id)
+                for kp in list(kf.keypoints.values()):
+                    mp = mm.map_points.get(kp.id) if kp.is_3d else None
                     if mp is None:
                         continue
                     n_good += mp.get_observers_number() > 4
                     n_total += 1
-                self.votes.append(dict(new=self._filtering, kfid=kfid,
-                                       n_good=n_good, n_total=n_total))
+                vote = dict(new=self._filtering, kfid=kfid, n_good=n_good,
+                            n_total=n_total, broken=False, partial=None,
+                            removed=False)
+            with self._lock:
+                self._low[kfid] = low
+                if vote is not None:
+                    self.votes.append(vote)
             return kf
 
         def remove_keyframe(kfid):
             kf = mm.frames_map.get(kfid)
             if kf is not None:
-                rule = None
-                if self._filtering is not None:
-                    rule = "low" if self._low.get(kfid) else "ratio"
-                self.removed.append(dict(kfid=kfid, frame_id=kf.id,
-                                         new=self._filtering, rule=rule))
+                entry = dict(kfid=kfid, frame_id=kf.id, new=None, rule=None)
+                if in_filtering():
+                    entry["new"] = self._filtering
+                    if self._low.get(kfid):
+                        entry.update(rule="low", nb_3d=kf.nb_3d_kpts)
+                    else:
+                        # The caller is map_filtering: the counts its ratio
+                        # test read.
+                        caller = sys._getframe(1).f_locals
+                        entry.update(rule="ratio", n_good=caller["n_good"],
+                                     n_total=caller["n_total"])
+                with self._lock:
+                    self.removed.append(entry)
+                    if (entry["rule"] == "ratio" and self.votes
+                            and self.votes[-1]["kfid"] == kfid):
+                        self.votes[-1]["removed"] = True
             return orig_remove(kfid)
+
+        # The vote's two reads of new_kf_available, by line.
+        filtering = type(es).map_filtering
+        lines, first = inspect.getsourcelines(filtering)
+        sites = [first + i for i, line in enumerate(lines)
+                 if "if self.new_kf_available" in line]
+        if len(sites) != 2:
+            raise AssertionError(f"map_filtering reads new_kf_available at "
+                                 f"{len(sites)} sites, expected 2")
+        site_of = dict(zip(sites, ("outer", "inner")))
+        code = filtering.__code__
+
+        def read_flag(est):
+            value = est.__dict__.get("new_kf_available", False)
+            if not value:
+                return value
+            caller = sys._getframe(1)
+            site = site_of.get(caller.f_lineno)
+            if caller.f_code is not code or site is None:
+                return value
+            local = caller.f_locals
+            entry = dict(site=site, new=self._filtering,
+                         kfid=local.get("kfid"))
+            if site == "inner":
+                entry["partial"] = (local["n_good"], local["n_total"])
+            with self._lock:
+                self.breaks.append(entry)
+                if (site == "inner" and self.votes
+                        and self.votes[-1]["kfid"] == entry["kfid"]):
+                    self.votes[-1].update(broken=True,
+                                          partial=entry["partial"])
+            return value
+
+        def write_flag(est, value):
+            est.__dict__["new_kf_available"] = value
+
+        self._es_class = cls = type(es)
+        es.__class__ = type(cls.__name__, (cls,), {
+            "__module__": cls.__module__,
+            "new_kf_available": property(read_flag, write_flag)})
 
         self._log = _FreeCapLog()
         logging.getLogger(mod.log.name).addHandler(self._log)
@@ -2696,6 +2821,7 @@ class LongRunRecord:
     def close(self):
         self.mod.local_bundle_adjustment_packed = self._packed
         logging.getLogger(self.mod.log.name).removeHandler(self._log)
+        self.es.__class__ = self._es_class
         for obj, names in ((self.es, ("_get_ba_parameters",
                                       "local_bundle_adjustment",
                                       "map_filtering")),
@@ -2715,8 +2841,68 @@ class LongRunRecord:
             keyframe_frames=[frames[k] for k in sorted(frames)],
             removed=self.removed, votes=self.votes,
             vote_kfids=sorted({v["new"] for v in self.votes}),
+            votes_completed=sum(not v["broken"] for v in self.votes),
+            breaks={site: sum(b["site"] == site for b in self.breaks)
+                    for site in ("outer", "inner")},
+            break_log=self.breaks,
             solves=self.solves, free_cap_holds=self.holds,
             max_covisibility=self.max_cov)
+
+
+def removal_faults(removed, params):
+    """The entries of `removed` (LongRunRecord.removed) whose rule is
+    missing or whose recorded counts do not satisfy it: "low" needs nb_3d
+    < min_cov_score // 2, "ratio" n_good / n_total > filtering_ratio (on
+    the vote's full or partial count)."""
+    bad = []
+    for r in removed:
+        if r["rule"] == "low":
+            ok = r["nb_3d"] < params.min_cov_score // 2
+        elif r["rule"] == "ratio":
+            ok = (r["n_total"] > 0
+                  and r["n_good"] / r["n_total"] > params.filtering_ratio)
+        else:
+            ok = False
+        if not ok:
+            bad.append(r)
+    return bad
+
+
+def map_invariants(sm):
+    """The map's consistency after finish(), on either package's
+    SlamManager: for each invariant, the violations found (empty where it
+    holds). MAP_INVARIANTS_PINNED names those that the JAX package's own
+    runs break."""
+    mm = sm.map_manager
+    frames, points = mm.frames_map, mm.map_points
+    out = {name: [] for name in ("nb_keyframes", "nb_mappoints",
+                                 "observers_live", "keypoints_live",
+                                 "covisibility_symmetric")}
+    if mm.nb_keyframes != len(frames):
+        out["nb_keyframes"].append((mm.nb_keyframes, len(frames)))
+    n_3d = sum(1 for mp in points.values() if mp.is_3d)
+    if mm.nb_mappoints != n_3d:
+        out["nb_mappoints"].append((mm.nb_mappoints, n_3d))
+    for mpid, mp in points.items():
+        for kfid in mp.get_observers():
+            if kfid not in frames:
+                out["observers_live"].append((mpid, kfid))
+    for kfid, kf in frames.items():
+        for kp in kf.get_3d_keypoints():
+            if kp.id not in points:
+                out["keypoints_live"].append((kfid, kp.id))
+        for other, score in kf.covisible_kf.items():
+            back = (frames[other].covisible_kf.get(kfid)
+                    if other in frames else score)
+            if back != score:
+                out["covisibility_symmetric"].append(
+                    (kfid, other, score, back))
+    return out
+
+
+# map_invariants' invariants that the JAX package's own end states break
+# (reference behaviour, ROADMAP Queue 3, pinned): not asserted.
+MAP_INVARIANTS_PINNED = ("nb_mappoints",)
 
 
 # The JAX package's CPU runs of phases 20 and 21
@@ -3011,6 +3197,200 @@ def phase_long_slab(dev):
     return launches
 
 
+# The JAX package's CPU runs of phase 22's path
+# (scripts/cpu_path_reference.py jax long_slab_threaded: four on the
+# scene's images, three with --perturb 1-3; PERF.md), one entry a run:
+# keyframes made and live, votes (each ran to its end: no run broke one),
+# breaks at each site, removed keyframes, the largest pose bucket P; and
+# the largest metric ATE. Threads make each run differ.
+JAX_LONG_THREADED = dict(ate_m=0.099882,
+                         made=[32, 31, 32, 31, 30, 31, 31],
+                         live=[32, 31, 32, 31, 30, 31, 31],
+                         votes=[146, 123, 123, 123, 107, 123, 119],
+                         outer=[0] * 7, inner=[0] * 7, removed=[0] * 7,
+                         max_P=[32] * 7)
+# Phase 22's result, read by scripts/threaded_runs.py.
+LONG_THREADED = {}
+
+
+def phase_long_slab_threaded(dev):
+    """Phase 22: long_slab (bench.py's slab block over 100 frames) in
+    threaded mode, Params(stereo=True, ba_window=30, sequential=False), fed
+    as bench.py feeds its threaded mode (feed_threaded), then wait() and
+    finish(), under a LongRunRecord. The manager thread tracks on the
+    classic path (the 2-D level kernel) and detects at keyframes (K2), the
+    mapper thread runs the stereo cascade, the estimator thread local BA
+    at P 16 to 64 and map filtering's vote, which breaks on
+    new_kf_available when the mapper hands on a keyframe. No sync debug
+    mode (process-wide). Asserts no dead or stalled worker, 0 resets, a
+    finite trajectory of every frame, keyframes made and live within the
+    JAX runs' range widened by max(2, 10%) (_within), >= 1 vote run to its
+    end, >= 1 solve at P >= 32 (at P 64 if every JAX run reached it), ATE
+    <= 2x the largest JAX run's + 0.01 m, every removal's rule and counts
+    (removal_faults), map_invariants but the pinned ones, the level kernel
+    and K2 launched and standalone K1 and the 1-D mode not, and no
+    device-memory growth by phase 20's rule (memory allocated after
+    finish() exceeds that when frame 60 goes in by no more than the
+    largest solve's own peak). Prints the votes and the breaks at each
+    site, the FPS after frame 15 with the drain included, what wait()
+    left, each thread's stage timers and the largest estimator queue."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch.datasets.synthetic import make_scene
+    from slamtpu_torch.eval.ate import ate_rmse
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("sync debug mode left on before the threaded "
+                             "phase")
+    name, cfg, ref = ("long_slab_threaded", LONG_PATHS["long_slab"],
+                      JAX_LONG_THREADED)
+    scene = make_scene(n_frames=cfg["frames"], height=376, width=1241,
+                       n_points=cfg["n_points"], stereo=True, baseline=0.54,
+                       seed=7, layout=cfg["layout"])
+    frames = [scene.frame(i) for i in range(len(scene))]
+    params = Params(stereo=True, sequential=False, **cfg["params"])
+    saver = ReplaySaver()
+    sm = SlamManager(params, scene.camera, right_camera=scene.right_camera,
+                     slam_io=saver, device=dev)
+    big = {}
+
+    def on_solve(fn, buf, kw):
+        if (kw["P"], kw["X"], kw["O"]) >= big.get("key", (0, 0, 0)):
+            big.update(key=(kw["P"], kw["X"], kw["O"]), buf=buf, kw=kw)
+        return fn(buf, **kw)
+
+    record = LongRunRecord(sm, on_solve=on_solve)
+    resets = _counting_resets(sm)
+    marks = {}
+
+    def on_frame(i):
+        record.frame = i
+        if i == 2 * LONG_WINDOW:
+            torch.cuda.synchronize()
+            marks["allocated"] = torch.cuda.memory_allocated()
+
+    torch.cuda.synchronize()
+    TIMERS.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        t_warm, t_end, es_queue = feed_threaded(
+            sm, frames, scene.timestamps, on_frame=on_frame,
+            sync=torch.cuda.synchronize)
+        left = dict(ba_pending=sm.mapper.estimator._pending is not None,
+                    mapper_queue=len(sm.mapper.keyframe_queue),
+                    estimator_queue=len(sm.mapper.estimator.frame_queue))
+        sm.finish()
+        torch.cuda.synchronize()
+    finally:
+        record.close()
+    t1 = time.perf_counter()
+    launches = _read_counts()
+    rec = record.summary()
+    summary = TIMERS.summary()
+    end_allocated = torch.cuda.memory_allocated()
+
+    # The largest solve again, alone: its memory peak over what was
+    # allocated before it.
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    record._packed(big["buf"], **big["kw"])
+    torch.cuda.synchronize()
+    big_peak = torch.cuda.max_memory_allocated() - base
+    growth = end_allocated - marks["allocated"]
+
+    est = saver.trajectory_xyz().astype(np.float64)
+    gt = np.stack([q[:3, 3] for q in scene.poses_wc])
+    finite = est.shape == gt.shape and bool(np.all(np.isfinite(est)))
+    ate = ate_rmse(est, gt, align_scale=False) if finite else float("nan")
+    fps = (len(frames) - THREADED_WARM) / (t_end - t_warm)
+    invariants = map_invariants(sm)
+    broken = {k: v[:5] for k, v in invariants.items()
+              if v and k not in MAP_INVARIANTS_PINNED}
+    faults = removal_faults(rec["removed"], params)
+    max_p = max((s["P"] for s in rec["solves"]), default=0)
+    stages = _stage_summary(summary, ("sm.", "mp.", "es.", "fe.", "mm."))
+    LONG_THREADED.clear()
+    LONG_THREADED.update(
+        keyframes_made=rec["keyframes_made"],
+        keyframes_live=rec["keyframes_live"], ate_m=ate, fps_after_15=fps,
+        resets=resets["n"], votes=len(rec["votes"]),
+        votes_completed=rec["votes_completed"], breaks=rec["breaks"],
+        removed=[(r["kfid"], r["rule"]) for r in rec["removed"]],
+        max_P=max_p, solves=len(rec["solves"]), max_estimator_queue=es_queue,
+        after_wait=left, stages=stages)
+    _log(name, frames=len(frames), total_s=f"{t1 - t0:.3f}",
+         fps_after_15=f"{fps:.3f}", resets=resets["n"],
+         keyframes_made=rec["keyframes_made"],
+         jax_made=json.dumps(ref["made"], separators=(",", ":")),
+         keyframes_live=rec["keyframes_live"],
+         jax_live=json.dumps(ref["live"], separators=(",", ":")),
+         ate_m=f"{ate:.5f}", jax_ate_m=f"{ref['ate_m']:.5f}",
+         votes=len(rec["votes"]), votes_completed=rec["votes_completed"],
+         breaks_outer=rec["breaks"]["outer"],
+         breaks_inner=rec["breaks"]["inner"],
+         jax_votes=json.dumps(ref["votes"], separators=(",", ":")),
+         jax_outer=json.dumps(ref["outer"], separators=(",", ":")),
+         jax_inner=json.dumps(ref["inner"], separators=(",", ":")),
+         vote_kfids=json.dumps(rec["vote_kfids"], separators=(",", ":")),
+         removed=json.dumps(LONG_THREADED["removed"], separators=(",", ":")),
+         jax_removed=json.dumps(ref["removed"], separators=(",", ":")),
+         solves_by_P=json.dumps(
+             {p: sum(s["P"] == p for s in rec["solves"])
+              for p in sorted({s["P"] for s in rec["solves"]})},
+             separators=(",", ":")),
+         free_poses_held=json.dumps(rec["free_cap_holds"],
+                                    separators=(",", ":")),
+         max_estimator_queue=es_queue,
+         after_wait=json.dumps(left, separators=(",", ":")),
+         memory_growth_mib=f"{growth / 2**20:.1f}",
+         largest_bucket=json.dumps(big["key"], separators=(",", ":")),
+         largest_bucket_peak_mib=f"{big_peak / 2**20:.1f}",
+         invariants=json.dumps({k: len(v) for k, v in invariants.items()},
+                               separators=(",", ":")),
+         launches=json.dumps(launches, separators=(",", ":")), card=f"'{SMI}'")
+    print(f"[{name}] breaks " + json.dumps(rec["break_log"],
+                                          separators=(",", ":")), flush=True)
+    print(f"[{name}] stage_timers " + json.dumps(stages), flush=True)
+
+    if resets["n"]:
+        raise AssertionError(f"{name}: {resets['n']} reset(s)")
+    if not finite:
+        raise AssertionError(f"{name}: trajectory {est.shape} not finite / "
+                             f"not {gt.shape}")
+    for key, got in (("made", rec["keyframes_made"]),
+                     ("live", rec["keyframes_live"])):
+        if not _within(got, ref[key]):
+            raise AssertionError(f"{name}: {got} keyframes {key}, expected "
+                                 f"{ref[key]} within max(2, 10%)")
+    if rec["votes_completed"] < 1:
+        raise AssertionError(f"{name}: no vote ran to its end "
+                             f"({len(rec['votes'])} votes, breaks "
+                             f"{rec['breaks']})")
+    need_p = 64 if min(ref["max_P"]) >= 64 else 32
+    if max_p < need_p:
+        raise AssertionError(f"{name}: no solve at P >= {need_p} (largest "
+                             f"P {max_p})")
+    ate_bound = 2.0 * ref["ate_m"] + 0.01
+    if not ate <= ate_bound:
+        raise AssertionError(f"{name}: metric ATE {ate:.4f} m > "
+                             f"{ate_bound:.4f} m")
+    if faults:
+        raise AssertionError(f"{name}: removals without their rule's "
+                             f"counts: {faults}")
+    if broken:
+        raise AssertionError(f"{name}: map invariants broken: {broken}")
+    _check_path_kernels(name, launches)
+    if not growth <= big_peak:
+        raise AssertionError(f"{name}: device memory grew by {growth} bytes "
+                             f"from frame {2 * LONG_WINDOW} to the end, more "
+                             f"than the largest solve's peak {big_peak}")
+    return launches
+
+
 # Floors of the mesh phase: tracked points a sequence (of 1024) in both
 # tracking steps, and P3P inliers a sequence.
 MESH_FLOORS = {"tracked": 900, "p3p_inliers": 700}
@@ -3069,6 +3449,7 @@ def main() -> int:
     paths["long_dense"] = phase_long_dense(dev, wide)
     DENSE_RENDERED.clear()
     paths["long_slab"] = phase_long_slab(dev)
+    paths["long_slab_threaded"] = phase_long_slab_threaded(dev)
     # Standalone K1's headline numbers are at the shape its path gives it
     # (subpixel refinement); phase 3's LK shapes stay beside them.
     lk_shapes = {k: k1[k] for k in ("ms", "device_ms", "plain_ms",

@@ -3,7 +3,8 @@ and print its result as one JSON line (`RESULT {...}`).
 
     JAX_PLATFORMS=cpu python scripts/cpu_path_reference.py jax|torch \
         mono|real|default|default60|dense_wide_ba|long_dense|long_slab|\
-        variant|nocarry|speculate|brief|reference|threaded|checkpoint \
+        long_slab_threaded|variant|nocarry|speculate|brief|reference|\
+        threaded|checkpoint \
         [--threads N] \
         [--seed S] [--perturb P] \
         [--init-pose JSON]
@@ -36,6 +37,14 @@ default60 (`chip_smoke.py` phase 18, whose constants these are).
 long_dense: dense_wide_ba run to 120 frames (the same scene, 24000 points,
 seed 7, and `Params(stereo=True, **DENSE_PARAMS)`), where local BA solves
 at P 32 / X 16384 with ~10k map points (`chip_smoke.py` phase 20).
+long_slab_threaded: long_slab in threaded mode (`chip_smoke.py` phase 22):
+`Params(stereo=True, ba_window=30, sequential=False)`, fed as bench.py
+feeds its threaded mode, then `wait()` and `finish()`; it prints the
+record's fields and, beside them, the vote's breaks at each site, the
+votes run to their end, the rule checks of every removal
+(`removal_faults`), chip_smoke.py's `map_invariants` (violations by
+invariant), what `wait()` left, the largest estimator queue, the FPS after
+frame 15 (the drain included) and the stage timers. `--perturb` applies.
 long_slab: bench.py's slab block (`BENCH_LAYOUT=slab BENCH_BA_WINDOW=30`):
 the 376x1241 slab scene (6000 points, seed 7), 100 frames, with
 `Params(stereo=True, ba_window=30)`, where map filtering votes on kfid >= 20
@@ -102,7 +111,8 @@ sys.path.insert(0, str(REPO))
 # The dense_wide_ba path's Params beside stereo=True and its scene's points
 # are chip_smoke.py phase 18's; the long paths' are phases 20 and 21's.
 from chip_smoke import (DENSE_N_POINTS, DENSE_PARAMS, LONG_PATHS,  # noqa
-                        LongRunRecord)
+                        THREADED_WARM, LongRunRecord, feed_threaded,
+                        map_invariants, removal_faults)
 
 
 def _package(name):
@@ -179,6 +189,15 @@ def _hook_init_pose(fe, inject):
     return rec
 
 
+def _perturbed(pair, noise):
+    """The images of `pair`, each pixel times 1 + u, u uniform in +-2^-23
+    drawn from `noise` (a numpy Generator; None leaves them as they are)."""
+    if noise is None:
+        return pair
+    return [(img * (1.0 + noise.uniform(-2.0**-23, 2.0**-23, img.shape)))
+            .astype(np.float32) for img in pair]
+
+
 def run(pkg_name: str, path: str, init_pose=None, seed: int = 7,
         perturb=None) -> dict:
     k = _package(pkg_name)
@@ -219,12 +238,8 @@ def run(pkg_name: str, path: str, init_pose=None, seed: int = 7,
                      else np.random.default_rng(perturb))
 
             def feed(i):
-                pair = scene.frame(i)
-                if noise is not None:
-                    pair = [(img * (1.0 + noise.uniform(
-                        -2.0**-23, 2.0**-23, img.shape))).astype(np.float32)
-                        for img in pair]
-                sm.add_stereo_image(*pair, float(scene.timestamps[i]))
+                sm.add_stereo_image(*_perturbed(scene.frame(i), noise),
+                                    float(scene.timestamps[i]))
     resets = [0]
     reset = sm.reset
 
@@ -299,18 +314,6 @@ def _city(k, n, seed):
     return scene, np.stack([q[:3, 3] for q in scene.poses_wc])
 
 
-def _until(sm, done, what, timeout=600.0):
-    """Poll done() while the worker threads live; raise on a dead worker
-    or after `timeout` seconds."""
-    deadline = time.time() + timeout
-    while not done():
-        if not all(t.is_alive() for t in sm._threads):
-            raise RuntimeError(f"a worker thread died waiting for {what}")
-        if time.time() > deadline:
-            raise RuntimeError(f"threaded pipeline stalled: {what}")
-        time.sleep(0.002)
-
-
 def run_threaded(pkg_name: str, seed: int = 7) -> dict:
     """bench.py's threaded run (`bench.py:184-197`) of the 60-frame scene."""
     k = _package(pkg_name)
@@ -329,19 +332,7 @@ def run_threaded(pkg_name: str, seed: int = 7) -> dict:
 
     sm.reset = counted_reset
     k["TIMERS"].reset()
-    warm = 15
-    for i in range(60):
-        if i < warm:
-            sm.add_stereo_image(*scene.frame(i), float(scene.timestamps[i]))
-            _until(sm, lambda: sm.get_queue_size() == 0, f"frame {i}")
-        else:
-            _until(sm, lambda: sm.get_queue_size() < 2, f"frame {i}")
-            sm.add_stereo_image(*scene.frame(i), float(scene.timestamps[i]))
-    _until(sm, lambda: not (sm.get_queue_size() or sm.mapper.keyframe_queue
-                            or sm.mapper.estimator.frame_queue), "the end")
-    sm.wait()
-    if any(t.is_alive() for t in sm._threads):
-        raise RuntimeError("a worker thread outlived wait()")
+    feed_threaded(sm, [scene.frame(i) for i in range(60)], scene.timestamps)
     est = saver.trajectory_xyz().astype(np.float64)
     summary = k["TIMERS"].summary()
     out = dict(package=pkg_name, path="threaded", resets=resets[0],
@@ -358,6 +349,68 @@ def run_threaded(pkg_name: str, seed: int = 7) -> dict:
         out[stage] = summary.get(stage, {}).get("calls", 0)
     if len(est) == len(gt):
         out["ate_m"] = k["ate_rmse"](est, gt, align_scale=False)
+    out["seconds"] = round(time.time() - t0, 1)
+    return out
+
+
+def run_long_threaded(pkg_name: str, perturb=None) -> dict:
+    """long_slab in threaded mode (`chip_smoke.py` phase 22): the slab
+    scene's 100 frames into `Params(stereo=True, ba_window=30,
+    sequential=False)`, fed by chip_smoke.feed_threaded (bench.py's feed),
+    then `wait()` and `finish()`, under a LongRunRecord."""
+    k = _package(pkg_name)
+    t0 = time.time()
+    cfg = LONG_PATHS["long_slab"]
+    scene = k["make_scene"](n_frames=cfg["frames"], height=376, width=1241,
+                            n_points=cfg["n_points"], stereo=True,
+                            baseline=0.54, seed=7, layout=cfg["layout"])
+    gt = np.stack([q[:3, 3] for q in scene.poses_wc])
+    p = k["Params"](stereo=True, sequential=False, **cfg["params"])
+    saver = k["ReplaySaver"]()
+    sm = k["manager"](p, scene.camera, scene.right_camera, saver)
+    noise = None if perturb is None else np.random.default_rng(perturb)
+    frames = [_perturbed(scene.frame(i), noise) for i in range(len(scene))]
+    resets = [0]
+    reset = sm.reset
+
+    def counted_reset():
+        resets[0] += 1
+        reset()
+
+    sm.reset = counted_reset
+    record = LongRunRecord(sm)
+    k["TIMERS"].reset()
+    try:
+        t_warm, t_end, es_queue = feed_threaded(
+            sm, frames, scene.timestamps,
+            on_frame=lambda i: setattr(record, "frame", i))
+        # What wait() leaves: a deferred BA result, keyframes handed on
+        # after the workers stopped.
+        left = dict(ba_pending=sm.mapper.estimator._pending is not None,
+                    mapper_queue=len(sm.mapper.keyframe_queue),
+                    estimator_queue=len(sm.mapper.estimator.frame_queue))
+        sm.finish()
+    finally:
+        record.close()
+    t_fin = time.perf_counter()
+    est = saver.trajectory_xyz().astype(np.float64)
+    summary = k["TIMERS"].summary()
+    out = dict(package=pkg_name, path="long_slab_threaded", perturb=perturb,
+               resets=resets[0], poses=len(est),
+               finite=bool(np.all(np.isfinite(est))),
+               ate_m=(k["ate_rmse"](est, gt, align_scale=False)
+                      if len(est) == len(gt) else None),
+               fps_after_15=((len(frames) - THREADED_WARM)
+                             / (t_end - t_warm)),
+               wait_to_finish_s=t_fin - t_end, max_estimator_queue=es_queue,
+               after_wait=left)
+    out.update(record.summary())
+    out["removal_faults"] = removal_faults(out["removed"], p)
+    out["map_invariants"] = {name: len(v) for name, v in
+                             map_invariants(sm).items()}
+    out["stages"] = {name: {f: v[f] for f in ("calls", "mean_ms", "p50_ms")}
+                     for name, v in summary.items()
+                     if name.startswith(("sm.", "mp.", "es.", "fe."))}
     out["seconds"] = round(time.time() - t0, 1)
     return out
 
@@ -423,7 +476,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("package", choices=("jax", "torch"))
     ap.add_argument("path", choices=("mono", "real", *STEREO_PATHS,
-                                     "default60", "threaded", "checkpoint"))
+                                     "default60", "threaded", "checkpoint",
+                                     "long_slab_threaded"))
     ap.add_argument("--threads", type=int, default=4,
                     help="torch CPU threads (the port only)")
     ap.add_argument("--init-pose", type=json.loads, default=None,
@@ -444,6 +498,8 @@ def main():
         result = run_threaded(args.package, args.seed)
     elif args.path == "checkpoint":
         result = run_checkpoint(args.package, args.seed)
+    elif args.path == "long_slab_threaded":
+        result = run_long_threaded(args.package, args.perturb)
     else:
         result = run(args.package, args.path, args.init_pose, args.seed,
                      args.perturb)

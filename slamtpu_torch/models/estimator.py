@@ -322,35 +322,38 @@ class Estimator:
                 break
             if kfid >= new_keyframe.kfid:
                 continue
-            if not mm.has_keyframe(kfid):
-                new_keyframe.remove_covisible_kf(kfid)
-                continue
-            kf = mm.get_keyframe(kfid)
-            if kf.nb_3d_kpts < p.min_cov_score // 2:
-                with mm.map_lock:
+            # One keyframe's vote at a time under map_lock: it drops
+            # observations, which the manager's tracking and the mapper's
+            # triangulation drop under the same lock in threaded mode (the
+            # JAX package votes without it).
+            with mm.map_lock:
+                if not mm.has_keyframe(kfid):
+                    new_keyframe.remove_covisible_kf(kfid)
+                    continue
+                kf = mm.get_keyframe(kfid)
+                if kf.nb_3d_kpts < p.min_cov_score // 2:
                     mm.remove_keyframe(kfid)
-                n_removed += 1
-                continue
+                    n_removed += 1
+                    continue
 
-            n_good, n_total = 0, 0
-            for kp in kf.get_3d_keypoints():
-                if kp.id not in mm.map_points:
-                    mm.remove_mappoint_obs(kp.id, kfid)
+                n_good, n_total = 0, 0
+                for kp in kf.get_3d_keypoints():
+                    if kp.id not in mm.map_points:
+                        mm.remove_mappoint_obs(kp.id, kfid)
+                        continue
+                    mp = mm.get_mappoint(kp.id)
+                    if mp is None:
+                        continue
+                    if mp.get_observers_number() > 4:
+                        n_good += 1
+                    n_total += 1
+                    if self.new_kf_available:
+                        break
+                if n_total == 0:
                     continue
-                mp = mm.get_mappoint(kp.id)
-                if mp is None:
-                    continue
-                if mp.get_observers_number() > 4:
-                    n_good += 1
-                n_total += 1
-                if self.new_kf_available:
-                    break
-            if n_total == 0:
-                continue
-            if n_good / n_total > p.filtering_ratio:
-                with mm.map_lock:
+                if n_good / n_total > p.filtering_ratio:
                     mm.remove_keyframe(kfid)
-                n_removed += 1
+                    n_removed += 1
         if n_removed:
             log.debug("[ES] Removed %d keyframes.", n_removed)
 

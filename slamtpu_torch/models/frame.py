@@ -103,14 +103,18 @@ class Frame:
     def get_2d_keypoints(self):
         return [kp for kp in self.keypoints.values() if not kp.is_3d]
 
+    # The 3D accessors iterate a copy of the keypoints taken in one step:
+    # in threaded mode another worker thread may drop a keypoint of this
+    # keyframe while the mapper's covisibility update, local BA's assembly
+    # or map filtering's vote reads them.
     def get_3d_keypoints(self):
-        return [kp for kp in self.keypoints.values() if kp.is_3d]
+        return [kp for kp in list(self.keypoints.values()) if kp.is_3d]
 
     def get_stereo_keypoints(self):
         return [kp for kp in self.keypoints.values() if kp.is_stereo]
 
     def get_3d_keypoints_ids(self):
-        return [kp.id for kp in self.keypoints.values() if kp.is_3d]
+        return [kp.id for kp in list(self.keypoints.values()) if kp.is_3d]
 
     def get_keypoint(self, kpid) -> Optional[Keypoint]:
         return self.keypoints.get(kpid)

@@ -233,10 +233,12 @@ class MapManager:
 
         bad_kfids = set()
         for kfid, cov_score in covisible_keyframes.items():
-            if kfid not in self.frames_map:
+            # One lookup: in threaded mode map filtering's vote may remove
+            # the keyframe between a membership test and a read.
+            cov_frame = self.frames_map.get(kfid)
+            if cov_frame is None:
                 bad_kfids.add(kfid)
                 continue
-            cov_frame = self.frames_map[kfid]
             cov_frame.add_covisibility(frame.kfid, cov_score)
             for kp in cov_frame.get_3d_keypoints():
                 if kp.id not in frame.keypoints:

@@ -426,9 +426,14 @@ class SlamManager:
         the three queues are empty, then stop the worker threads (5 s join
         each). As in the JAX package, a deferred BA result stays pending
         and a keyframe that the mapper hands on after the stop is not
-        processed: call finish() to apply the pending result. A worker
-        that died leaves its queue full and this call waiting; callers that
-        must not hang check `t.is_alive()` on `_threads` first."""
+        processed: call finish() to apply the pending result. The image
+        queue reads empty as soon as the manager thread takes the last
+        frame, so the stop can come while that frame is still tracked; a
+        keyframe it makes then stays in the mapper's queue, neither
+        triangulated nor handed to the estimator (both packages, long
+        threaded runs of bench.py's slab scene). A worker that died leaves
+        its queue full and this call waiting; callers that must not hang
+        check `t.is_alive()` on `_threads` first."""
         if self.params.sequential:
             self.finish()
             return
