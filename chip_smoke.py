@@ -29,8 +29,11 @@ Phases, one line each; any failure raises and exits nonzero:
      CPU run of this scene and Params: 9 keyframes, 0.0205 m);
   6. the default path: bench.py's 60-frame 376x1241 city scene with
      Params(stereo=True) — pipelined tracking, the carry-chained async
-     keyframe program, deferred local BA — with every tracked frame's LK
-     cascade run under torch.cuda.set_sync_debug_mode("error"); asserts no
+     keyframe program, deferred local BA, both the tracking step and BA as
+     CUDA graph replays (slamtpu_torch/programs.py) — with every tracked
+     frame's step (its LK cascade, and at its first call the eager warm-up
+     and the capture) run under torch.cuda.set_sync_debug_mode("error");
+     asserts no
      reset, a finite 60-pose trajectory, > 40 pipelined dispatches, >= 3
      async keyframes, >= 2 BA results applied, K2 launched at least once per
      keyframe program, the level kernel launched, standalone K1 not
@@ -125,7 +128,8 @@ Phases, one line each; any failure raises and exits nonzero:
      configurations in one Params (DENSE_PARAMS: 2000 keypoints in a
      capacity of 2048, 4 + 1 pyramid levels, a 30-keyframe BA window) on
      bench.py's 60-frame city scene at 24,000 scene points, fed as phase 6
-     feeds its scene, every LK cascade under set_sync_debug_mode("error");
+     feeds its scene, every tracking step under
+     set_sync_debug_mode("error");
      asserts no reset, >= 1,800 detections at the first keyframe, > 40
      dispatches, >= 2 BAs applied, the level kernel on level 4 with
      N = 2048 and K2 with N = 2048, keyframes within 2 and metric ATE <= 2x
@@ -153,11 +157,13 @@ Phases, one line each; any failure raises and exits nonzero:
      run (JAX_LONG): 0 resets, a finite 120-pose trajectory, keyframes
      made and live within max(2, 10%), metric ATE <= 2x + 0.01 m, the
      holds' number and largest within max(2, 10%), the level kernel and
-     K2 launched and standalone K1 and the 1-D mode not, every LK cascade
-     sync-free, >= 1 solve at P 32 with X 16384, the largest solve's map
-     points within 10%, and no device-memory leak (memory allocated at
+     K2 launched and standalone K1 and the 1-D mode not, every tracking
+     step sync-free, >= 1 solve at P 32 with X 16384, the largest solve's
+     map points within 10%, and no device-memory leak (memory allocated at
      the last window's end exceeds that at the second's by no more than
-     the largest solve's own peak). Prints one line a 30-frame window
+     the largest solve's own peak: the larger of its eager call alone and
+     of every solve's own peak in the run, a graph capture included).
+     Prints one line a 30-frame window
      (FPS; p50 of sm.frame, fe.pipe.dispatch, es.ba, es.filter; the BA
      solves' P / X / O and device ms; memory allocated and its peak) and
      its P 32 / X 16384 solves beside phase 19's;
@@ -180,6 +186,22 @@ Phases, one line each; any failure raises and exits nonzero:
      the kernels and no device-memory growth; prints the votes and
      breaks, the FPS after frame 15, what wait() left and each thread's
      stage timers.
+  23. programs: track_step and local_bundle_adjustment_packed, the JAX
+     package's jitted programs, as captured CUDA graphs
+     (slamtpu_torch/programs.py): each replay against its eager call
+     (programs.eager()) on the inputs kept from phases 6, 7 (also at the
+     five-point key), 18, 19, 20 and 21 — every output equal; then
+     bench.py's 60-frame default path under programs.eager() and with the
+     graphs, in this process — the same keyframe ids and ATE, one
+     track_step replay a dispatch and one BA replay a solve, at most 100
+     kernel launches (graph launches included) a tracked frame outside
+     keyframes over frames 20-30 (torch.profiler), the level kernel and K2
+     counted through the replays; prints both runs' launches a frame,
+     fe.pipe.dispatch and es.ba p50, BA ms by bucket, FPS after frame 15
+     and every captured key's capture ms, nodes and replays and the pools'
+     MiB.
+Phases 3-22 run the pipelined tracking step and local BA as graph replays;
+a replay adds to each kernel's count what its capture recorded.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
 time around one wrapper call; device_ms: the kernel's own device time from
@@ -192,6 +214,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -311,6 +334,73 @@ def _no_sync(fn, record):
         return out
 
     return wrapped
+
+
+def _call_peak(fn, buf, kw):
+    """Device memory fn(buf, **kw) allocates at its peak over what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn(buf, **kw)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _eager_peak(fn, buf, kw):
+    """_call_peak of the eager call (programs.eager()), not a replay."""
+    from slamtpu_torch import programs
+
+    with programs.eager():
+        return _call_peak(fn, buf, kw)
+
+
+# (tag, program name) -> (args, static keyword arguments) of one call of a
+# jitted step on a path, kept for phase 23 (its replay against its eager
+# call on the path's own inputs).
+PROGRAM_INPUTS = {}
+# The tracking step's call kept: the KEEP_CALL-th of the path (or its last).
+KEEP_CALL = 30
+
+
+@contextlib.contextmanager
+def _keeping_inputs(tag):
+    """While a path runs, keep a copy of the inputs of its KEEP_CALL-th
+    track_step call and of its largest local BA solve (by P, X, O) in
+    PROGRAM_INPUTS, for phase 23. The copies are made before the call, on
+    the caller's stream, outside any capture."""
+    from slamtpu_torch import programs
+
+    orig = programs.Program.__call__
+    calls = {}
+
+    def call(self, *args, **static):
+        n = calls[self.name] = calls.get(self.name, 0) + 1
+        kept = PROGRAM_INPUTS.get((tag, self.name))
+        if self.name == "track_step":
+            keep = n <= KEEP_CALL
+        else:
+            size = tuple(static.get(k, 0) for k in ("P", "X", "O"))
+            keep = kept is None or size >= kept[2]
+        if keep and any(t.is_cuda for t in _tensor_leaves(args)):
+            PROGRAM_INPUTS[(tag, self.name)] = (
+                programs.clone_tree(args), dict(static),
+                tuple(static.get(k, 0) for k in ("P", "X", "O")))
+        return orig(self, *args, **static)
+
+    programs.Program.__call__ = call
+    try:
+        yield
+    finally:
+        programs.Program.__call__ = orig
+
+
+def _tensor_leaves(tree):
+    from slamtpu_torch import programs
+
+    return programs.leaves(tree)
 
 
 # Device ms of K1's and K2's earlier designs (K1 one 256-thread block a
@@ -984,7 +1074,7 @@ def phase_default_path(dev):
     from slamtpu_torch import Params, ReplaySaver, SlamManager
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.models import estimator as est_mod
-    from slamtpu_torch.ops import frontend_step as fs_mod
+    from slamtpu_torch.ops import track_step as ts_mod
     from slamtpu_torch.ops.keyframe_step import keyframe_step_carry
     from slamtpu_torch.utils.profiling import TIMERS
 
@@ -1002,12 +1092,14 @@ def phase_default_path(dev):
         ba_calls.append((buf, kw))
         return ba_orig(buf, **kw)
 
-    # Every tracked frame's LK cascade runs with synchronizing calls turned
-    # into errors: the cascade must issue no host sync.
-    cascade_orig = fs_mod.fb_cascade
-    no_sync_cascades = []
+    # Every tracked frame's step (its LK cascade, its graph's copy-in,
+    # replay and clone-out, and on its first call the eager warm-up and the
+    # capture) runs with synchronizing calls turned into errors: it must
+    # issue no host sync.
+    step_orig = ts_mod.track_step
+    no_sync_steps = []
     est_mod.local_bundle_adjustment_packed = ba_spy
-    fs_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
+    ts_mod.track_step = _no_sync(step_orig, no_sync_steps)
     TIMERS.reset()
     _reset_counts()
     keyframe_step_carry.launches = 0
@@ -1015,16 +1107,17 @@ def phase_default_path(dev):
     t_warm = None
     t0 = time.perf_counter()
     try:
-        for i, (left, right) in enumerate(frames):
-            if i == warm:
-                torch.cuda.synchronize()
-                t_warm = time.perf_counter()
-            sm.add_stereo_image(left, right, float(scene.timestamps[i]))
-        sm.finish()
+        with _keeping_inputs("default"):
+            for i, (left, right) in enumerate(frames):
+                if i == warm:
+                    torch.cuda.synchronize()
+                    t_warm = time.perf_counter()
+                sm.add_stereo_image(left, right, float(scene.timestamps[i]))
+            sm.finish()
         torch.cuda.synchronize()
     finally:
         est_mod.local_bundle_adjustment_packed = ba_orig
-        fs_mod.fb_cascade = cascade_orig
+        ts_mod.track_step = step_orig
     t1 = time.perf_counter()
     launches = _read_counts()
     kf_programs = keyframe_step_carry.launches
@@ -1056,7 +1149,7 @@ def phase_default_path(dev):
          async_keyframes=calls("mp.kf_async.dispatch"),
          keyframe_programs=kf_programs, ba_solves=calls("es.ba"),
          ba_applied=calls("es.ba_apply"),
-         cascades_without_sync=len(no_sync_cascades),
+         steps_without_sync=len(no_sync_steps),
          ba_device_ms=f"{ba_ms:.3f}" if ba_ms is not None else "none",
          ba_shape=(f"P={ba_calls[-1][1]['P']},X={ba_calls[-1][1]['X']},"
                    f"O={ba_calls[-1][1]['O']}") if ba_calls else "none",
@@ -1081,8 +1174,8 @@ def phase_default_path(dev):
     if not (kf_programs >= 3 and launches["suppress_nms"] >= kf_programs):
         raise AssertionError(f"K2 launched {launches['suppress_nms']} times "
                              f"for {kf_programs} keyframe programs")
-    if len(no_sync_cascades) < calls("fe.pipe.dispatch"):
-        raise AssertionError(f"{len(no_sync_cascades)} LK cascades ran "
+    if len(no_sync_steps) < calls("fe.pipe.dispatch"):
+        raise AssertionError(f"{len(no_sync_steps)} tracking steps ran "
                              "under sync debug mode for "
                              f"{calls('fe.pipe.dispatch')} dispatches")
     _check_path_kernels("default", launches)
@@ -1232,12 +1325,13 @@ def phase_mono_path(dev):
     warm = 15
     t_warm = None
     t0 = time.perf_counter()
-    for i, left in enumerate(frames):
-        if i == warm:
-            torch.cuda.synchronize()
-            t_warm = time.perf_counter()
-        sm.add_image(left, float(scene.timestamps[i]))
-    sm.finish()
+    with _keeping_inputs("mono"):
+        for i, left in enumerate(frames):
+            if i == warm:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            sm.add_image(left, float(scene.timestamps[i]))
+        sm.finish()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = _read_counts()
@@ -1665,6 +1759,17 @@ def _until(sm, done, what, watch=None):
         time.sleep(0.002)
 
 
+def _stream_sync():
+    """Wait for this thread's current stream. While a threaded manager
+    runs, its estimator thread may be capturing a CUDA graph, and CUDA
+    refuses to synchronize the whole device during a capture
+    (torch.cuda.synchronize): a threaded phase waits for a stream. The
+    worker threads launch on the same (default) stream."""
+    import torch
+
+    torch.cuda.current_stream().synchronize()
+
+
 def feed_threaded(sm, frames, timestamps, on_frame=None, sync=None):
     """bench.py's threaded feed (bench.py:184-197) of `frames` (left,
     right pairs) into a threaded SlamManager of either package: the first
@@ -1741,7 +1846,7 @@ def phase_threaded_path(dev):
     t0 = time.perf_counter()
     # FPS over frames 16-60 with the final wait() included.
     t_warm, t1, _ = feed_threaded(sm, frames, scene.timestamps,
-                                  sync=torch.cuda.synchronize)
+                                  sync=_stream_sync)
     launches = _read_counts()
     summary = TIMERS.summary()
 
@@ -2252,7 +2357,7 @@ def phase_dense_path(dev):
     Params(stereo=True, **DENSE_PARAMS) (2000 keypoints in a capacity of
     2048, 4 + 1 pyramid levels, a 30-keyframe BA window; every other field
     at its default), fed as phase 6 feeds its scene, every tracked frame's
-    LK cascade under set_sync_debug_mode("error"). Asserts no reset, a
+    step under set_sync_debug_mode("error"). Asserts no reset, a
     finite 60-pose trajectory, >= DENSE_FIRST_KF_FLOOR detections admitted
     at the first keyframe, > 40 pipelined dispatches, >= 2 BAs applied, the
     2-D level kernel launched on level 4 with N = 2048 and K2 with
@@ -2276,8 +2381,8 @@ def phase_dense_path(dev):
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.models import estimator as est_mod
     from slamtpu_torch.ops import detect_suppress as ds
-    from slamtpu_torch.ops import frontend_step as fs_mod
     from slamtpu_torch.ops import lucas_kanade as lk
+    from slamtpu_torch.ops import track_step as ts_mod
     from slamtpu_torch.utils.profiling import TIMERS
 
     scene = make_scene(n_frames=DENSE_FRAMES, height=376, width=1241,
@@ -2298,8 +2403,8 @@ def phase_dense_path(dev):
     ba_orig = est_mod.local_bundle_adjustment_packed
     level_orig = lk.lk_level_cuda
     k2_orig = ds.suppress_and_nms_cuda
-    cascade_orig = fs_mod.fb_cascade
-    ba_calls, no_sync_cascades = [], []
+    step_orig = ts_mod.track_step
+    ba_calls, no_sync_steps = [], []
     level_calls, k2_calls = collections.Counter(), collections.Counter()
     capture = {"on": False}
 
@@ -2316,9 +2421,11 @@ def phase_dense_path(dev):
         hw = tuple(d1["stack"].shape[-2:])
         one_d = bool(kw.get("one_d", False))
         level_calls[hw, p_lvl.shape[-2], one_d] += 1
+        # Under a graph capture nothing has run yet: keep no inputs there.
+        keep = capture["on"] and not torch.cuda.is_current_stream_capturing()
         for lv, shape in padded.items():
             got = DENSE_INPUTS.setdefault(("level", lv), [])
-            if (capture["on"] and hw == shape and not one_d
+            if (keep and hw == shape and not one_d
                     and tuple(p_lvl.shape) == (cap, 2)
                     and len(got) < DENSE_CAPTURES[lv]):
                 got.append((
@@ -2330,7 +2437,8 @@ def phase_dense_path(dev):
 
     def k2_spy(resp, yx, valid, **kw):
         k2_calls[yx.shape[0]] += 1
-        if capture["on"] and yx.shape[0] == cap and "k2" not in DENSE_INPUTS:
+        if (capture["on"] and yx.shape[0] == cap and "k2" not in DENSE_INPUTS
+                and not torch.cuda.is_current_stream_capturing()):
             DENSE_INPUTS["k2"] = (resp.clone(), yx.clone(), valid.clone(),
                                   dict(kw))
         return k2_orig(resp, yx, valid, **kw)
@@ -2338,7 +2446,7 @@ def phase_dense_path(dev):
     est_mod.local_bundle_adjustment_packed = ba_spy
     lk.lk_level_cuda = level_spy
     ds.suppress_and_nms_cuda = k2_spy
-    fs_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
+    ts_mod.track_step = _no_sync(step_orig, no_sync_steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     TIMERS.reset()
@@ -2350,21 +2458,22 @@ def phase_dense_path(dev):
     t_warm = None
     t0 = time.perf_counter()
     try:
-        for i in range(len(scene)):
-            if i == warm:
-                torch.cuda.synchronize()
-                t_warm = time.perf_counter()
-            capture["on"] = i >= 20
-            sm.add_stereo_image(*frames[i], float(scene.timestamps[i]))
-            if first_kf is None:
-                first_kf = sm.front_end.current_frame.nb_keypoints
-        sm.finish()
+        with _keeping_inputs("dense"):
+            for i in range(len(scene)):
+                if i == warm:
+                    torch.cuda.synchronize()
+                    t_warm = time.perf_counter()
+                capture["on"] = i >= 20
+                sm.add_stereo_image(*frames[i], float(scene.timestamps[i]))
+                if first_kf is None:
+                    first_kf = sm.front_end.current_frame.nb_keypoints
+            sm.finish()
         torch.cuda.synchronize()
     finally:
         est_mod.local_bundle_adjustment_packed = ba_orig
         lk.lk_level_cuda = level_orig
         ds.suppress_and_nms_cuda = k2_orig
-        fs_mod.fb_cascade = cascade_orig
+        ts_mod.track_step = step_orig
         logging.getLogger("slamtpu_torch.es").removeHandler(held)
     t1 = time.perf_counter()
     launches = _read_counts()
@@ -2410,7 +2519,7 @@ def phase_dense_path(dev):
          ba_solves=calls("es.ba"), ba_applied=calls("es.ba_apply"),
          free_poses_held=json.dumps(held.free, separators=(",", ":")),
          jax_free_poses_held=json.dumps(JAX_DENSE_FREE_HELD),
-         cascades_without_sync=len(no_sync_cascades),
+         steps_without_sync=len(no_sync_steps),
          launches=json.dumps(launches, separators=(",", ":")))
     _log("dense_path", card=f"'{SMI}'",
          ba_solves=json.dumps(solves, separators=(",", ":")),
@@ -2438,9 +2547,9 @@ def phase_dense_path(dev):
     if not calls("es.ba_apply") >= 2:
         raise AssertionError(f"dense: {calls('es.ba_apply')} BA results "
                              "applied, expected >= 2")
-    if len(no_sync_cascades) < calls("fe.pipe.dispatch"):
-        raise AssertionError(f"dense: {len(no_sync_cascades)} LK cascades ran "
-                             f"under sync debug mode for "
+    if len(no_sync_steps) < calls("fe.pipe.dispatch"):
+        raise AssertionError(f"dense: {len(no_sync_steps)} tracking steps "
+                             f"ran under sync debug mode for "
                              f"{calls('fe.pipe.dispatch')} dispatches")
     if not level_calls[padded[top], cap, False]:
         raise AssertionError(f"dense: the level kernel never ran on level "
@@ -2564,6 +2673,8 @@ def phase_wide_ba(dev):
     card = {k: v.cpu().numpy() for k, v in
             ba(buf_dev, P=P, X=X, O=O).items()}
     peak = torch.cuda.max_memory_allocated() - base
+    PROGRAM_INPUTS["wide_ba", ba.name] = ((buf_dev,), dict(P=P, X=X, O=O),
+                                          (P, X, O))
     ms = _median_ms(lambda: ba(buf_dev, P=P, X=X, O=O), reps=3, warmup=1)
     t0 = time.perf_counter()
     cpu = {k: v.numpy() for k, v in
@@ -2942,29 +3053,32 @@ def _within(got, refs):
 def _long_path(dev, name):
     """Phases 20 and 21's run: LONG_PATHS[name]'s scene through
     SlamManager.add_stereo_image with Params(stereo=True, **params), then
-    finish(), every tracked frame's LK cascade under
+    finish(), every tracked frame's step under
     set_sync_debug_mode("error"), with a LongRunRecord whose solves are
-    timed with CUDA events. Prints one line a LONG_WINDOW-frame window
-    (FPS; the p50 of sm.frame, fe.pipe.dispatch, es.ba and es.filter; its
-    BA solves' (P, X, O) and device ms; torch.cuda.memory_allocated() at
-    its end and max_memory_allocated() within it) and the run's line;
-    times the largest bucket's last solve again alone (median of 3) with
-    its memory peak. Asserts what both long paths share against
+    timed with CUDA events and their own memory peaks read. Prints one
+    line a LONG_WINDOW-frame window (FPS; the p50 of sm.frame,
+    fe.pipe.dispatch, es.ba and es.filter; its BA solves' (P, X, O) and
+    device ms; torch.cuda.memory_allocated() at its end and the peak
+    within it) and the run's line; times the largest bucket's last solve
+    again alone (median of 3, replayed and eager) with its memory peak.
+    Asserts what both long paths share against
     JAX_LONG[name]: no reset, a finite trajectory of every frame,
     keyframes made and live (_within), metric ATE <= 2x R's + 0.01 m, the
     FREE_CAP holds' number and largest free count (_within), the level
     kernel and K2 launched and standalone K1 and the 1-D mode not, every
-    LK cascade sync-free, and no device-memory leak: the memory allocated
-    at the end of the last window exceeds that at the end of the second by
-    no more than the largest solve's own peak. Returns (launches, record
+    tracking step sync-free, and no device-memory leak: the memory
+    allocated at the end of the last window exceeds that at the end of the
+    second by no more than the largest solve's own peak (the larger of its
+    eager call alone and of every solve's own peak in the run, the solve
+    that captured a bucket's graph included). Returns (launches, record
     summary, solves with their ms)."""
     import numpy as np
     import torch
 
-    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch import Params, ReplaySaver, SlamManager, programs
     from slamtpu_torch.datasets.synthetic import make_scene
     from slamtpu_torch.eval.ate import ate_rmse
-    from slamtpu_torch.ops import frontend_step as fs_mod
+    from slamtpu_torch.ops import track_step as ts_mod
     from slamtpu_torch.utils.profiling import TIMERS
 
     cfg, ref = LONG_PATHS[name], JAX_LONG[name]
@@ -2980,25 +3094,34 @@ def _long_path(dev, name):
                      right_camera=scene.right_camera, slam_io=saver,
                      device=dev)
     timed, big = [], {}
+    # The window's peak: the peak statistic is reset around every solve
+    # (its own peak, a capture included), so the window keeps the largest
+    # reading itself.
+    mark_peak = [0]
 
     def on_solve(fn, buf, kw):
+        mark_peak[0] = max(mark_peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn(buf, **kw)
         end.record()
+        peak = torch.cuda.max_memory_allocated()
+        mark_peak[0] = max(mark_peak[0], peak)
         timed.append(dict(P=kw["P"], X=kw["X"], O=kw["O"],
-                          events=(start, end)))
+                          events=(start, end), own_peak=peak - base))
         # Only the largest solve's input stays referenced (for its peak
         # below), so the windows' memory holds no buffer of this phase's.
         if (kw["P"], kw["X"], kw["O"]) >= big.get("key", (0, 0, 0)):
             big.update(key=(kw["P"], kw["X"], kw["O"]), buf=buf, kw=kw)
         return out
 
-    cascade_orig = fs_mod.fb_cascade
-    no_sync_cascades = []
+    step_orig = ts_mod.track_step
+    no_sync_steps = []
     record = LongRunRecord(sm, on_solve=on_solve)
-    fs_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
+    ts_mod.track_step = _no_sync(step_orig, no_sync_steps)
     stages = ("sm.frame", "fe.pipe.dispatch", "es.ba", "es.filter")
     windows = []
     torch.cuda.synchronize()
@@ -3025,10 +3148,13 @@ def _long_path(dev, name):
                    for c in timed[mark["solves"]:]]
         mark["solves"] = len(timed)
         w["allocated_mib"] = round(torch.cuda.memory_allocated() / 2**20, 1)
-        w["peak_mib"] = round(torch.cuda.max_memory_allocated() / 2**20, 1)
+        w["peak_mib"] = round(max(mark_peak[0],
+                                  torch.cuda.max_memory_allocated())
+                              / 2**20, 1)
         w["allocated"] = torch.cuda.memory_allocated()
         windows.append(w)
         torch.cuda.reset_peak_memory_stats()
+        mark_peak[0] = 0
         mark.update(t=time.perf_counter(), i=i)
         print(f"[{name}] window " + json.dumps(
             {k: v for k, v in w.items() if k not in ("allocated",
@@ -3037,15 +3163,16 @@ def _long_path(dev, name):
 
     t0 = time.perf_counter()
     try:
-        for i in range(len(scene)):
-            if i and i % LONG_WINDOW == 0:
-                close_window(i)
-            record.frame = i
-            sm.add_stereo_image(*frames[i], float(scene.timestamps[i]))
-        sm.finish()
+        with _keeping_inputs(name):
+            for i in range(len(scene)):
+                if i and i % LONG_WINDOW == 0:
+                    close_window(i)
+                record.frame = i
+                sm.add_stereo_image(*frames[i], float(scene.timestamps[i]))
+            sm.finish()
         close_window(len(scene))
     finally:
-        fs_mod.fb_cascade = cascade_orig
+        ts_mod.track_step = step_orig
         record.close()
     t1 = time.perf_counter()
     launches = _read_counts()
@@ -3055,16 +3182,17 @@ def _long_path(dev, name):
     def calls(stage):
         return summary.get(stage, {}).get("calls", 0)
 
-    # The largest solve again, alone: its memory peak over what was
-    # allocated before it.
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    record._packed(big["buf"], **big["kw"])
-    torch.cuda.synchronize()
-    big_peak = torch.cuda.max_memory_allocated() - base
+    # The largest solve's own peak: the larger of its eager call alone and
+    # of every solve's own peak in the run (the one that captured a
+    # bucket's graph holds its eager warm-up and the capture).
+    big_peak = max([_eager_peak(record._packed, big["buf"], big["kw"])]
+                   + [c["own_peak"] for c in timed])
     big_ms = _median_ms(lambda: record._packed(big["buf"], **big["kw"]),
                         reps=3, warmup=1)
+    with programs.eager():
+        big_eager_ms = _median_ms(
+            lambda: record._packed(big["buf"], **big["kw"]), reps=3,
+            warmup=1)
 
     est = saver.trajectory_xyz().astype(np.float64)
     gt = np.stack([q[:3, 3] for q in scene.poses_wc])
@@ -3106,10 +3234,11 @@ def _long_path(dev, name):
          jax_largest_points=ref["largest_points"],
          largest_bucket=json.dumps(big["key"], separators=(",", ":")),
          largest_bucket_alone_ms=f"{big_ms:.3f}",
+         largest_bucket_eager_ms=f"{big_eager_ms:.3f}",
          largest_bucket_peak_mib=f"{big_peak / 2**20:.1f}",
          memory_growth_mib=f"{growth / 2**20:.1f}",
          dispatches=calls("fe.pipe.dispatch"),
-         cascades_without_sync=len(no_sync_cascades),
+         steps_without_sync=len(no_sync_steps),
          launches=json.dumps(launches, separators=(",", ":")), card=f"'{SMI}'")
     print(f"[{name}] ba_solves " + json.dumps(
         [(s["frame"], s["n_poses"], s["n_free"], s["n_points"], s["n_obs"],
@@ -3136,8 +3265,8 @@ def _long_path(dev, name):
                              f"expected {ref['holds']} holds, the largest "
                              f"{ref['largest_held']}, within max(2, 10%)")
     _check_path_kernels(name, launches)
-    if len(no_sync_cascades) < calls("fe.pipe.dispatch"):
-        raise AssertionError(f"{name}: {len(no_sync_cascades)} LK cascades "
+    if len(no_sync_steps) < calls("fe.pipe.dispatch"):
+        raise AssertionError(f"{name}: {len(no_sync_steps)} tracking steps "
                              f"ran under sync debug mode for "
                              f"{calls('fe.pipe.dispatch')} dispatches")
     if not growth <= big_peak:
@@ -3269,7 +3398,7 @@ def phase_long_slab_threaded(dev):
     def on_frame(i):
         record.frame = i
         if i == 2 * LONG_WINDOW:
-            torch.cuda.synchronize()
+            _stream_sync()
             marks["allocated"] = torch.cuda.memory_allocated()
 
     torch.cuda.synchronize()
@@ -3279,7 +3408,7 @@ def phase_long_slab_threaded(dev):
     try:
         t_warm, t_end, es_queue = feed_threaded(
             sm, frames, scene.timestamps, on_frame=on_frame,
-            sync=torch.cuda.synchronize)
+            sync=_stream_sync)
         left = dict(ba_pending=sm.mapper.estimator._pending is not None,
                     mapper_queue=len(sm.mapper.keyframe_queue),
                     estimator_queue=len(sm.mapper.estimator.frame_queue))
@@ -3293,13 +3422,11 @@ def phase_long_slab_threaded(dev):
     summary = TIMERS.summary()
     end_allocated = torch.cuda.memory_allocated()
 
-    # The largest solve again, alone: its memory peak over what was
-    # allocated before it.
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    record._packed(big["buf"], **big["kw"])
-    torch.cuda.synchronize()
-    big_peak = torch.cuda.max_memory_allocated() - base
+    # The largest solve again, alone, eagerly and replayed: its memory peak
+    # over what was allocated before it (phase 20's own peaks are not read
+    # here: another thread allocates while the estimator solves).
+    big_peak = max(_eager_peak(record._packed, big["buf"], big["kw"]),
+                   _call_peak(record._packed, big["buf"], big["kw"]))
     growth = end_allocated - marks["allocated"]
 
     est = saver.trajectory_xyz().astype(np.float64)
@@ -3393,6 +3520,302 @@ def phase_long_slab_threaded(dev):
 
 # Floors of the mesh phase: tracked points a sequence (of 1024) in both
 # tracking steps, and P3P inliers a sequence.
+# Phase 23: the profiled frames of each 60-frame run (PERF.md section 5's
+# steady window) and the runtime calls that launch work on the card.
+PROGRAMS_WINDOW = (20, 31)
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
+COPIES = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy",
+          "cudaMemset")
+# The most kernel launches the host may issue for a tracked frame outside
+# keyframes with the graphs on (the eager port: 18,217 a frame, PR 6).
+MAX_GRAPHED_LAUNCHES = 100
+
+
+def _trees_equal(got, want):
+    """(every leaf equal, leaves, the largest absolute difference of an
+    unequal float leaf or the count of unequal elements of another)."""
+    import torch
+
+    g, w = _tensor_leaves(got), _tensor_leaves(want)
+    worst = 0.0
+    equal = len(g) == len(w)
+    for a, b in zip(g, w):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False, len(g), float("inf")
+        if torch.equal(a, b):
+            continue
+        equal = False
+        if a.is_floating_point():
+            worst = max(worst, float((a.double() - b.double()).abs()
+                                     .nan_to_num(float("inf")).max()))
+        else:
+            worst = max(worst, float((a != b).sum()))
+    return equal, len(g), worst
+
+
+def _replay_against_eager(prog, args, static):
+    """A replay of prog on args against its eager call."""
+    import torch
+
+    from slamtpu_torch import programs
+
+    with programs.eager():
+        want = prog(*args, **static)
+    got = prog(*args, **static)
+    torch.cuda.synchronize()
+    return _trees_equal(got, want)
+
+
+def _programs_run(dev, mode):
+    """bench.py's 60-frame city scene on the default path (phase 6's Params
+    and feeding) with the graphs on ("graphs") or under programs.eager()
+    ("eager"); torch.profiler over PROGRAMS_WINDOW's frames, each frame's
+    host calls counted by name."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from slamtpu_torch import Params, ReplaySaver, SlamManager, programs
+    from slamtpu_torch.eval.ate import ate_rmse
+    from slamtpu_torch.models import estimator as est_mod
+    from slamtpu_torch.ops import ba as ba_mod
+    from slamtpu_torch.ops import track_step as ts_mod
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    scene, frames = _city_scene(60)
+    saver = ReplaySaver()
+    sm = SlamManager(Params(stereo=True), scene.camera,
+                     right_camera=scene.right_camera, slam_io=saver,
+                     device=dev)
+    steps = (ts_mod._TRACK_STEP, ba_mod.local_bundle_adjustment_packed)
+
+    def replays():
+        return [sum(e.replays for e in p.entries.values()) for p in steps]
+
+    solves = []
+    ba_orig = est_mod.local_bundle_adjustment_packed
+
+    def ba_timed(buf, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ba_orig(buf, **kw)
+        end.record()
+        solves.append(((kw["P"], kw["X"], kw["O"]), start, end))
+        return out
+
+    w0, w1 = PROGRAMS_WINDOW
+    keyframe_frames = set()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t = {}
+    replays0 = replays()
+    est_mod.local_bundle_adjustment_packed = ba_timed
+    TIMERS.reset()
+    _reset_counts()
+    try:
+        with (programs.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            for i, (left, right) in enumerate(frames):
+                if i in (15, w0):
+                    torch.cuda.synchronize()
+                    t[i] = time.perf_counter()
+                if i == w0:
+                    prof.__enter__()
+                before = {k: len(v) for k, v in TIMERS.durations.items()}
+                with record_function(f"smoke_frame_{i}"):
+                    sm.add_stereo_image(left, right,
+                                        float(scene.timestamps[i]))
+                # Keyframe work: a keyframe program, its apply, a
+                # resync, BA or map filtering ran in this frame.
+                if any(len(v) > before.get(k, 0)
+                       for k, v in TIMERS.durations.items()
+                       if k.startswith(("mp.", "es.", "fe.resync"))):
+                    keyframe_frames.add(i)
+                if i == w1 - 1:
+                    torch.cuda.synchronize()
+                    t["window"] = time.perf_counter()
+                    prof.__exit__(None, None, None)
+                    t[w1] = time.perf_counter()
+            sm.finish()
+        torch.cuda.synchronize()
+    finally:
+        est_mod.local_bundle_adjustment_packed = ba_orig
+    t_end = time.perf_counter()
+    launches = _read_counts()
+    steps_replayed = [b - a for a, b in zip(replays0, replays())]
+    summary = TIMERS.summary()
+
+    ranges = {}
+    calls = []
+    device_us = 0.0
+    for evt in prof.events():
+        if evt.name.startswith("smoke_frame_"):
+            # The frame's host range; the profiler also spans each
+            # annotation over the card's timeline, which is no device work.
+            if evt.device_type == DeviceType.CPU:
+                ranges[int(evt.name[len("smoke_frame_"):])] = (
+                    evt.time_range.start, evt.time_range.end)
+        elif evt.device_type == DeviceType.CUDA:
+            device_us += evt.time_range.elapsed_us()
+        elif evt.name in KERNEL_LAUNCHES + COPIES:
+            calls.append((evt.time_range.start, evt.name))
+    per_frame = {}
+    for i, (a, b) in sorted(ranges.items()):
+        names = [n for s, n in calls if a <= s <= b]
+        per_frame[i] = dict(
+            kernels=sum(n in KERNEL_LAUNCHES for n in names),
+            graphs=names.count("cudaGraphLaunch"),
+            copies=sum(n in COPIES for n in names),
+            keyframe=i in keyframe_frames)
+    tracked = [f["kernels"] for f in per_frame.values() if not f["keyframe"]]
+    by_bucket = {}
+    for key, start, end in solves:
+        by_bucket.setdefault(key, []).append(start.elapsed_time(end))
+
+    est = saver.trajectory_xyz().astype(np.float64)
+    gt = np.stack([q[:3, 3] for q in scene.poses_wc])
+    ate = ate_rmse(est, gt, align_scale=False)
+    n_out = len(frames) - 15 - (w1 - w0)
+    fps = n_out / ((t[w0] - t[15]) + (t_end - t[w1]))
+
+    def p50(stage):
+        return summary.get(stage, {}).get("p50_ms")
+
+    return dict(
+        mode=mode, keyframe_ids=sorted(
+            f.id for f in sm.map_manager.frames_map.values()),
+        ate_m=ate, resets=sm.n_resets, fps_after_15=fps,
+        dispatches=summary.get("fe.pipe.dispatch", {}).get("calls", 0),
+        ba_solves=len(solves),
+        track_step_replays=steps_replayed[0],
+        ba_replays=steps_replayed[1],
+        dispatch_p50_ms=p50("fe.pipe.dispatch"), ba_p50_ms=p50("es.ba"),
+        ba_ms_by_bucket={f"P{k[0]}/X{k[1]}/O{k[2]}": dict(
+            solves=len(v), median=sorted(v)[len(v) // 2], first=v[0])
+            for k, v in sorted(by_bucket.items())},
+        tracked_frame_launches=dict(
+            frames=len(tracked), max=max(tracked, default=None),
+            median=sorted(tracked)[len(tracked) // 2] if tracked else None),
+        # The card's kernels and copies over the profiled frames' wall
+        # time, the profiler's exit left out (its own host cost within
+        # the frames lengthens the wall time, so this reads low).
+        device_busy_share=device_us / 1e6 / (t["window"] - t[w0]),
+        per_frame=per_frame, launches=launches)
+
+
+def phase_programs(dev):
+    """Phase 23: track_step and local BA as CUDA graphs (programs.py).
+
+    (a) On the inputs kept from phases 6, 7, 18, 19, 20 and 21
+    (PROGRAM_INPUTS), and on phase 7's tracking inputs at the five-point
+    key, each step's replay against its eager call: every output equal.
+    (b) bench.py's 60-frame default path under programs.eager() and with
+    the graphs, in this process: the same keyframe ids and the same ATE;
+    with the graphs, every dispatch one track_step replay and every solve
+    one BA replay, and at most MAX_GRAPHED_LAUNCHES kernel launches (graph
+    launches included) a tracked frame outside keyframes over frames 20-30
+    (torch.profiler); the kernels' counts (replays add their captures')
+    show the level kernel and K2. Prints, for both runs, the host's
+    launches a frame, fe.pipe.dispatch and es.ba p50, BA ms by bucket (CUDA
+    events), FPS after frame 15 (the profiled frames left out), and each
+    captured key's capture ms, nodes and replays and each pool's MiB.
+    Returns the graphed run's kernel counts."""
+    import torch
+
+    from slamtpu_torch import programs
+    from slamtpu_torch.ops import ba as ba_mod
+    from slamtpu_torch.ops import track_step as ts_mod
+
+    progs = {p.name: p for p in (ts_mod._TRACK_STEP,
+                                 ba_mod.local_bundle_adjustment_packed)}
+    checks = []
+    for (tag, name), (args, static, _) in sorted(PROGRAM_INPUTS.items()):
+        cases = [static]
+        if tag == "mono" and name == "track_step":
+            cases.append(dict(static, five_point=True))
+        for st in cases:
+            equal, leaves, worst = _replay_against_eager(progs[name], args,
+                                                         st)
+            checks.append(dict(inputs=tag, step=name,
+                               five_point=st.get("five_point"),
+                               bucket=[st[k] for k in ("P", "X", "O")
+                                       if k in st],
+                               leaves=leaves, equal=equal, worst=worst))
+    for c in checks:
+        print("[programs] replay_vs_eager " + json.dumps(
+            c, separators=(",", ":")), flush=True)
+    wanted = {"default", "mono", "dense", "wide_ba", "long_slab"}
+    tags = {c["inputs"] for c in checks}
+    if not wanted <= tags:
+        raise AssertionError(f"programs: no kept inputs of "
+                             f"{sorted(wanted - tags)}")
+    unequal = [c for c in checks if not c["equal"]]
+    if unequal:
+        raise AssertionError(f"programs: replays differ from their eager "
+                             f"calls: {unequal}")
+
+    runs = {mode: _programs_run(dev, mode) for mode in ("eager", "graphs")}
+    stats = {name: [dict(s, static={k: v for k, v in s["static"].items()
+                                    if k in ("P", "X", "O", "levels",
+                                             "five_point",
+                                             "essential_hypotheses")},
+                         shapes=s["shapes"][:1])
+                    for s in p.stats()] for name, p in progs.items()}
+    pools = {name: round((pool.reserved_bytes() or 0) / 2**20, 1)
+             for name, pool in programs.POOLS.items()}
+    for mode, r in runs.items():
+        _log("programs", mode=mode, card=f"'{SMI}'",
+             keyframes=len(r["keyframe_ids"]),
+             keyframe_ids=",".join(map(str, r["keyframe_ids"])),
+             ate_m=f"{r['ate_m']:.5f}", resets=r["resets"],
+             fps_after_15=f"{r['fps_after_15']:.3f}",
+             dispatches=r["dispatches"], ba_solves=r["ba_solves"],
+             track_step_replays=r["track_step_replays"],
+             ba_replays=r["ba_replays"],
+             dispatch_p50_ms=r["dispatch_p50_ms"],
+             ba_p50_ms=r["ba_p50_ms"],
+             device_busy_share=f"{r['device_busy_share']:.4f}",
+             tracked_frame_launches=json.dumps(r["tracked_frame_launches"],
+                                               separators=(",", ":")),
+             ba_ms_by_bucket=json.dumps(r["ba_ms_by_bucket"],
+                                        separators=(",", ":")),
+             launches=json.dumps(r["launches"], separators=(",", ":")))
+        print(f"[programs] {mode} per_frame " + json.dumps(
+            r["per_frame"], separators=(",", ":")), flush=True)
+    print("[programs] captures " + json.dumps(stats, separators=(",", ":")),
+          flush=True)
+    _log("programs", pools_mib=json.dumps(pools, separators=(",", ":")),
+         card=f"'{SMI}'")
+
+    eager, graphs = runs["eager"], runs["graphs"]
+    if (eager["keyframe_ids"] != graphs["keyframe_ids"]
+            or eager["ate_m"] != graphs["ate_m"]):
+        raise AssertionError(f"programs: eager run {eager['keyframe_ids']} "
+                             f"{eager['ate_m']!r} m, graphs "
+                             f"{graphs['keyframe_ids']} {graphs['ate_m']!r} m")
+    if graphs["resets"] or eager["resets"]:
+        raise AssertionError("programs: a reset on the default path")
+    if eager["track_step_replays"] or eager["ba_replays"]:
+        raise AssertionError("programs: a replay under programs.eager()")
+    if not (graphs["track_step_replays"] == graphs["dispatches"] > 40
+            and graphs["ba_replays"] == graphs["ba_solves"] >= 2):
+        raise AssertionError(
+            f"programs: {graphs['track_step_replays']} track_step replays "
+            f"for {graphs['dispatches']} dispatches, "
+            f"{graphs['ba_replays']} BA replays for {graphs['ba_solves']} "
+            f"solves")
+    tracked = graphs["tracked_frame_launches"]
+    if not (tracked["frames"] >= 3
+            and tracked["max"] <= MAX_GRAPHED_LAUNCHES):
+        raise AssertionError(f"programs: kernel launches a tracked frame "
+                             f"outside keyframes {tracked}, expected <= "
+                             f"{MAX_GRAPHED_LAUNCHES} over >= 3 frames")
+    _check_path_kernels("programs", graphs["launches"])
+    return graphs["launches"]
+
+
 MESH_FLOORS = {"tracked": 900, "p3p_inliers": 700}
 # nvidia-smi's name and power limit, for the lines that print times.
 SMI = ""
@@ -3450,6 +3873,7 @@ def main() -> int:
     DENSE_RENDERED.clear()
     paths["long_slab"] = phase_long_slab(dev)
     paths["long_slab_threaded"] = phase_long_slab_threaded(dev)
+    paths["programs"] = phase_programs(dev)
     # Standalone K1's headline numbers are at the shape its path gives it
     # (subpixel refinement); phase 3's LK shapes stay beside them.
     lk_shapes = {k: k1[k] for k in ("ms", "device_ms", "plain_ms",

@@ -15,10 +15,14 @@ synchronize would not report it). `SOURCE_FLAGS` gives one source extra
 nvcc flags.
 
 `count_launch` keeps each wrapper's `launches` count exact when threaded
-mode launches one kernel from two threads at once.
+mode launches one kernel from two threads at once. While this thread
+captures a CUDA graph (programs.py), a wrapper's launch is recorded, not
+counted: no kernel ran, and each replay of the graph adds the recorded
+amounts (`add_launches`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -136,12 +140,41 @@ def _check_nvcc(code, output: str) -> None:
         raise RuntimeError(f"nvcc failed ({code}):\n{output}")
 
 
+_LOCAL = threading.local()
+
+
 def count_launch(fn) -> None:
     """Add one to `fn.launches`. The attribute is a plain int that callers
     read and reset; the lock makes the read-modify-write atomic across
-    threads."""
+    threads. Inside `recording_launches` on this thread, record the launch
+    instead."""
+    record = getattr(_LOCAL, "record", None)
+    if record is not None:
+        record[fn] = record.get(fn, 0) + 1
+        return
     with _COUNT_LOCK:
         fn.launches += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add counts[fn] to each fn.launches (a graph replay's launches)."""
+    with _COUNT_LOCK:
+        for fn, n in counts.items():
+            fn.launches += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yield a dict {wrapper: launches} that this thread's count_launch
+    calls fill instead of the wrappers' counts (a capture: the wrappers
+    ran, their kernels did not). Other threads count as usual."""
+    outer = getattr(_LOCAL, "record", None)
+    record: dict = {}
+    _LOCAL.record = record
+    try:
+        yield record
+    finally:
+        _LOCAL.record = outer
 
 
 def stream_ptr(device) -> int:

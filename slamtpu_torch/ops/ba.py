@@ -22,12 +22,18 @@ observation touches exactly one pose block (2x6) and one point block (2x3):
 Pose parameterization: Euler ZYX + translation of `cw`; constant poses
 contribute residuals but get a zero pose Jacobian. BA has no TPU kernel
 (the Pallas Cholesky was deleted in round 4), so this is plain PyTorch.
+
+`local_bundle_adjustment_packed` is the JAX package's jitted solve: on the
+card one CUDA graph replay a solve (programs.py), keyed on the buffer's
+size and the static arguments (P, X, O, iterations, thresholds), all
+graphs in one memory pool; the CPU runs the eager solve.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import programs
 from .se3 import rot_zyx
 from .smallalg import inv3x3, solve_psd
 
@@ -255,11 +261,11 @@ def pack_ba_problem(poses, pose_const, points, obs_pose, obs_point, obs_px,
     return buf
 
 
-def local_bundle_adjustment_packed(buf, *, P: int, X: int, O: int,
-                                   iters1: int = 5, iters2: int = 10,
-                                   repr_eps: float = 5.0,
-                                   depth_eps: float = 1e-6,
-                                   gross_eps: float = 1e4):
+def local_bundle_adjustment_packed_eager(buf, *, P: int, X: int, O: int,
+                                         iters1: int = 5, iters2: int = 10,
+                                         repr_eps: float = 5.0,
+                                         depth_eps: float = 1e-6,
+                                         gross_eps: float = 1e4):
     """BA from one flat f32 buffer (one host-to-device copy).
 
     Layout: [poses0 P*6 | pose_const P | points0 X*3 | obs_pose O |
@@ -289,6 +295,12 @@ def local_bundle_adjustment_packed(buf, *, P: int, X: int, O: int,
         obs_valid, intrinsics, iters1=iters1, iters2=iters2,
         repr_eps=repr_eps, depth_eps=depth_eps, gross_eps=gross_eps,
     )
+
+
+# One graph a bucket (P, X, O), as jax.jit compiles one program a bucket.
+local_bundle_adjustment_packed = programs.Program(
+    local_bundle_adjustment_packed_eager, "local_bundle_adjustment_packed",
+    "local_ba")
 
 
 def local_bundle_adjustment(poses0, pose_const, points0, obs_pose, obs_point,

@@ -98,7 +98,7 @@ def frontend_step(pyr_prev, pyr_cur, px, valid, is3d_prior, disp_prior,
                   max_fb_distance: float = 1.0,
                   essential_hypotheses: int = 256, pnp_hypotheses: int = 256,
                   threshold: float = 3.0, min_parallax_5pt: float = 5.0,
-                  min_active: int = 0):
+                  min_active: int = 0, five_point: bool = False):
     """One tracked frame (same arguments and result dict as the JAX
     `frontend_step`, tensors in place of arrays; `key` is a raw threefry
     key pair): the LK stage (step 1), then `frontend_geometry` on its
@@ -115,7 +115,7 @@ def frontend_step(pyr_prev, pyr_cur, px, valid, is3d_prior, disp_prior,
         join_valid, prev_und_xy, prev_bearing_xy, R_comp, theta_predicted,
         intrinsics, dist, key, essential_hypotheses=essential_hypotheses,
         pnp_hypotheses=pnp_hypotheses, threshold=threshold,
-        min_parallax_5pt=min_parallax_5pt,
+        min_parallax_5pt=min_parallax_5pt, five_point=five_point,
     )
 
 
@@ -124,7 +124,8 @@ def frontend_geometry(new_px, ok, tracked_with_prior, mp_pos, has_mp,
                       R_comp, theta_predicted, intrinsics, dist, key, *,
                       essential_hypotheses: int = 256,
                       pnp_hypotheses: int = 256, threshold: float = 3.0,
-                      min_parallax_5pt: float = 5.0):
+                      min_parallax_5pt: float = 5.0,
+                      five_point: bool = False):
     """Steps 2-6 of `frontend_step` on the LK stage's outputs (new_px, ok,
     tracked_with_prior) over the whole keypoint set; returns its dict."""
     N = new_px.shape[0]
@@ -147,7 +148,7 @@ def frontend_geometry(new_px, ok, tracked_with_prior, mp_pos, has_mp,
         prev_bearing_xy, cur_bear[:, :2], prev_und_xy, cur_und.flip(-1),
         j_ok, torch.clamp(n_par, min=1), intrinsics, key,
         hypotheses=essential_hypotheses, threshold=threshold,
-        five_point=False,
+        five_point=five_point,
     )
     ess_inliers = ess["inliers"]
     ess_gate = (n_par >= 8) & (mean_parallax >= min_parallax_5pt) \

@@ -107,12 +107,14 @@ def _resize_weights_np(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+# Unbounded caches: a captured CUDA graph (programs.py) reads these tensors
+# by address, so none may be evicted and freed while a graph lives.
+@functools.lru_cache(maxsize=None)
 def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.from_numpy(_resize_weights_np(in_size, out_size)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _resize_taps(in_size: int, out_size: int, device):
     """(K, out) int64 input indices and weights (float32 values held in
     float64) of each output's nonzero taps, in increasing input order. An
@@ -163,7 +165,7 @@ def resize_bilinear(img, shape):
     return out
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _pyramid_kernels(sigma: float, product_sigma: float, device):
     """Conv weights of one level: (scharr_y, scharr_x, blur4, blur3)."""
     gk = gaussian_kernel_1d(product_sigma)

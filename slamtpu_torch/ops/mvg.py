@@ -21,7 +21,7 @@ import torch
 from .. import random as trandom
 from .fivepoint import five_point_candidates
 from .se3 import rt_to_4x4
-from .smallalg import polar_rotation3x3, smallest_eigvec_psd
+from .smallalg import polar_rotation3x3, smallest_eigvec_psd, take
 
 
 def sample_valid_indices(key, valid, shape):
@@ -146,7 +146,7 @@ def essential_ransac(pd_prev, pd_cur, px_prev, px_cur, valid, n, intrinsics,
     counts = torch.where(hyp_ok, torch.sum(inl, dim=1),
                          torch.full_like(hyp_ok, -1, dtype=torch.int64))
     best = torch.argmax(counts)
-    inliers0 = inl[best] & hyp_ok[best]
+    inliers0 = take(inl, best) & take(hyp_ok, best)
 
     # Least-squares polish on the winning hypothesis's inliers, rescored.
     Afull = _epipolar_rows(pd_prev, pd_cur) * inliers0[:, None].to(f32)
@@ -156,7 +156,7 @@ def essential_ransac(pd_prev, pd_cur, px_prev, px_cur, valid, n, intrinsics,
     err_ls = _sampson_px(F_ls[None], px_prev, px_cur)[0]
     inl_ls = (err_ls < threshold) & valid
     use_ls = torch.sum(inl_ls) >= torch.sum(inliers0)
-    E_best = torch.where(use_ls, E_ls, E[best])
+    E_best = torch.where(use_ls, E_ls, take(E, best))
     inliers = torch.where(use_ls, inl_ls, inliers0)
     n_inliers = torch.sum(inliers)
 
@@ -176,8 +176,9 @@ def essential_ransac(pd_prev, pd_cur, px_prev, px_cur, valid, n, intrinsics,
 
     N = pd_prev.shape[0]
     P1 = torch.eye(4, dtype=f32, device=dev)
-    bottom = torch.tensor([[[0.0, 0.0, 0.0, 1.0]]], dtype=f32,
-                          device=dev).expand(4, 1, 4)
+    # [0, 0, 0, 1] by a comparison: a host-built tensor would be a
+    # pageable copy, which a CUDA graph capture refuses.
+    bottom = (torch.arange(4, device=dev) == 3).to(f32).expand(4, 1, 4)
     P2c = torch.cat([torch.cat([cand_R, cand_t[..., None]], dim=-1), bottom],
                     dim=1)  # (4, 4, 4)
     pd1_r = pd_prev.expand(4, N, 2).reshape(4 * N, 2)
@@ -192,6 +193,6 @@ def essential_ransac(pd_prev, pd_cur, px_prev, px_cur, valid, n, intrinsics,
           + cand_t[:, None, :])[..., 2]
     votes = torch.sum((z1 > 0) & (z2 > 0) & inliers[None, :], dim=1)
     k = torch.argmax(votes)
-    pose = rt_to_4x4(cand_R[k], cand_t[k])
+    pose = rt_to_4x4(take(cand_R, k), take(cand_t, k))
     return {"E": E_best, "pose": pose, "inliers": inliers,
             "n_inliers": n_inliers}

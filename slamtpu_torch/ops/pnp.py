@@ -14,7 +14,7 @@ import torch
 
 from .mvg import sample_valid_indices
 from .se3 import rot_zyx, rt_to_4x4
-from .smallalg import solve_psd
+from .smallalg import solve_psd, take
 
 
 def _floor_abs(x, eps):
@@ -187,12 +187,13 @@ def p3p_ransac(points3d, pixels_xy, bearings, valid, n, intrinsics, key, *,
     counts = torch.where(okf, torch.sum(inls, dim=1),
                          torch.full_like(okf, -1, dtype=torch.int64))
     best = torch.argmax(counts)
-    inliers = inls[best]
-    n_inl = torch.clamp(counts[best], min=0)
-    avg_error = torch.sum(torch.where(inliers, err[best],
-                                      torch.zeros_like(err[best]))) \
+    inliers = take(inls, best)
+    n_inl = torch.clamp(take(counts, best), min=0)
+    err_best = take(err, best)
+    avg_error = torch.sum(torch.where(inliers, err_best,
+                                      torch.zeros_like(err_best))) \
         / torch.clamp(n_inl, min=1)
-    cw = rt_to_4x4(Rf[best], tf[best])
+    cw = rt_to_4x4(take(Rf, best), take(tf, best))
     return {"cw": cw, "inliers": inliers, "n_inliers": n_inl,
             "avg_error": avg_error}
 
@@ -248,7 +249,7 @@ def _lm_loop(theta0, points, pixels_yx, weights, intrinsics, iters):
 
     cost, _ = cost_fn(theta0)
     theta = theta0
-    lam = torch.tensor(1e-3, dtype=theta0.dtype, device=theta0.device)
+    lam = torch.full((), 1e-3, dtype=theta0.dtype, device=theta0.device)
     for _ in range(iters):
         _, r = cost_fn(theta)
         J = _pnp_jacobian(theta, points, weights, intrinsics)

@@ -135,8 +135,10 @@ def rt_to_4x4(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # [0, 0, 0, 1] by a comparison: writing a Python number into a device
+    # tensor is a host copy, which a CUDA graph capture refuses.
+    bottom = (torch.arange(4, device=R.device) == 3).to(R.dtype).expand(
+        batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

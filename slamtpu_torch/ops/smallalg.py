@@ -61,6 +61,13 @@ def det3x3(A):
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+def take(x, i):
+    """x[i] for an integer tensor i of one element, as a gather on the
+    device: indexing with a tensor index reads it on the host (a sync,
+    which a CUDA graph capture refuses)."""
+    return torch.index_select(x, 0, i.reshape(1))[0]
+
+
 def polar_rotation3x3(H, iters: int = 12):
     """Orthogonal polar factor of (..., 3, 3) by the Newton iteration
     X <- (X + X^-T) / 2. Returns (R, det_H); det_H <= 0 means invalid."""

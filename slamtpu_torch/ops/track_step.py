@@ -20,11 +20,21 @@ The motion model runs in float32 on the device, as in the JAX program.
 `carry_adopt_kf` (`speculate_keyframes=True`) grafts a keyframe program's
 output onto the speculated tip; its catch-up LK runs on the LK level
 kernel and, like the tracking step, issues no host sync on the card.
+
+`track_step` is the JAX package's jitted program: on the card one CUDA
+graph replay a frame (programs.py), keyed on the static arguments and the
+input shapes; `track_step_eager` is the same step as plain PyTorch calls,
+which the CPU runs. The values that change every frame, `dt` and the
+RANSAC key, enter the graph as device tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import programs
+from .. import random as trandom
+from ..device import upload
 from .frontend_step import frontend_step
 from .image import lk_pyramid_impl
 from .lucas_kanade import lk_flow
@@ -79,22 +89,27 @@ def _in_image(proj, height: int, width: int):
             & (proj[:, 1] >= 0.0) & (proj[:, 1] <= float(width - 1)))
 
 
-def track_step(carry, image, dt, key, *, levels: int, window: int,
-               iters: int = 30, eps: float = 1e-2, eig_thresh: float = 1e-4,
-               pad: int = 17, max_fb_distance: float = 1.0,
-               essential_hypotheses: int = 256, pnp_hypotheses: int = 256,
-               threshold: float = 3.0, min_active: int = 0,
-               sigma: float = 1.0, height: int = 0, width: int = 0):
+def track_step_eager(carry, image, dt, key, *, levels: int, window: int,
+                     iters: int = 30, eps: float = 1e-2,
+                     eig_thresh: float = 1e-4, pad: int = 17,
+                     max_fb_distance: float = 1.0,
+                     essential_hypotheses: int = 256,
+                     pnp_hypotheses: int = 256, threshold: float = 3.0,
+                     min_active: int = 0, sigma: float = 1.0,
+                     five_point: bool = False, height: int = 0,
+                     width: int = 0):
     """One tracked frame; returns (new_carry, per_kp (cap, 13), scalars
     (60,)), the JAX package's layouts. `dt` is the host-computed (f64)
-    time step, rounded to float32 as the JAX program receives it; `key`
-    is a raw threefry key pair."""
+    time step, rounded to float32 as the JAX program receives it (a float
+    or a 0-dim tensor); `key` is a raw threefry key, a pair or a (2,)
+    integer tensor."""
     f32 = torch.float32
     pyr_prev = carry["pyr"]
     kp = carry["kp"]
     misc = carry["misc"]
     dev = kp.device
-    dt = torch.full((), dt, dtype=f32, device=dev)
+    dt = (dt.to(f32) if torch.is_tensor(dt)
+          else torch.full((), dt, dtype=f32, device=dev))
 
     pyr_cur = lk_pyramid_impl(image, levels=levels, sigma=sigma, pad=pad)
 
@@ -144,7 +159,7 @@ def track_step(carry, image, dt, key, *, levels: int, window: int,
         eig_thresh=eig_thresh, pad=pad, max_fb_distance=max_fb_distance,
         essential_hypotheses=essential_hypotheses,
         pnp_hypotheses=pnp_hypotheses, threshold=threshold,
-        min_active=min_active,
+        min_active=min_active, five_point=five_point,
     )
 
     ok = res["ok"]
@@ -248,6 +263,30 @@ def track_step(carry, image, dt, key, *, levels: int, window: int,
         pose_to_theta(cw_final),                              # 54:60
     ])
     return new_carry, per_kp, scalars
+
+
+_TRACK_STEP = programs.Program(track_step_eager, "track_step", "track_step")
+
+
+def step_inputs(dt, key, device):
+    """`dt` as a 0-dim float32 tensor and `key` as a (2,) int64 tensor on
+    `device` (one pinned, non-blocking copy each from host values)."""
+    if not torch.is_tensor(dt):
+        dt = upload(np.float32(dt), device).reshape(())
+    if not torch.is_tensor(key):
+        key = upload(np.asarray(trandom.as_key(key), np.int64), device)
+    return dt.to(device, torch.float32), key.to(device, torch.int64)
+
+
+def track_step(carry, image, dt, key, **static):
+    """`track_step_eager` as the JAX package's jitted program: one captured
+    CUDA graph replay on the card, the eager step on the CPU. `static`:
+    its keyword arguments (levels, window, ..., five_point, height,
+    width), the key of the graph with the input shapes. `dt` and `key`
+    may be host values; they become device tensors, inputs of the
+    graph."""
+    dt, key = step_inputs(dt, key, carry["kp"].device)
+    return _TRACK_STEP(carry, image, dt, key, **static)
 
 
 def carry_merge(carry, host_kp, host_misc):

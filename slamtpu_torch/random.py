@@ -115,8 +115,8 @@ def uniform(key, shape, device, minval: float = 0.0,
     # exactly (a 23-bit integer); computed so, since vmap has no batching
     # rule for a dtype view.
     floats = (bits >> 9).to(torch.float32) * (2.0 ** -23)
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
