@@ -13,9 +13,11 @@ phase 7), window 20,30. torch.profiler covers the frames in
 the window (steady state: past the bootstrap keyframes). Prints, and
 writes to chiprun_out/<NAME or torch_profile_<path>>.json:
   - the card's name and power limit (nvidia-smi);
-  - window wall time per frame and the summed kernel time per frame, so
-    device busy share = kernel time / wall time (one stream, kernels do
-    not overlap);
+  - window wall time per frame and the summed kernel time per frame;
+  - the card's idle share over the window (1 - the union of its kernel,
+    copy and set intervals, benchmark/devtrace.py) and its split by the
+    layer of the program span the host was in (benchmark/spantrace.py:
+    tracked frame, keyframe, local BA; the rest is elsewhere);
   - kernel launches and host<->device synchronizations per frame, and the
     LK level kernel's (both modes) device time and launches per frame;
   - the top kernels by device time and the most frequent host ops;
@@ -36,7 +38,7 @@ import sys
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
+sys.path[:0] = [str(REPO), str(REPO / "benchmark")]
 
 # Path -> (frames, profiled window).
 PATHS = {"default": (60, "20,30"), "classic": (30, "10,20"),
@@ -59,7 +61,10 @@ def _stages(timers) -> dict:
 def main() -> int:
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from devtrace import SPAN, from_profile
+    from spantrace import LAYERS, idle_share
 
     from slamtpu_torch import Params, ReplaySaver, SlamManager
     from slamtpu_torch.datasets.synthetic import make_scene
@@ -112,12 +117,16 @@ def main() -> int:
     kf0 = sm.map_manager.nb_keyframes
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(w0, w1):
-            feed(i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with record_function(SPAN):
+            t0 = time.perf_counter()
+            for i in range(w0, w1):
+                feed(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     n = w1 - w0
+    trace = from_profile(prof, n)
+    idle = 1.0 - trace.busy_s / trace.window_s
+    idle_by_layer = {k: idle_share(trace, k) for k in LAYERS}
     kfs = sm.map_manager.nb_keyframes - kf0
     stages = _stages(TIMERS)
     TIMERS.reset()
@@ -154,8 +163,10 @@ def main() -> int:
         "unprofiled_wall_ms_per_frame_after_window": after_ms,
         "unprofiled_fps_after_window": 1e3 / after_ms,
         "kernel_ms_per_frame": kernel_us / 1e3 / n,
-        "device_busy_share": kernel_us / 1e6 / wall,
-        "device_busy_share_vs_unprofiled": kernel_us / 1e3 / n / after_ms,
+        "device_idle_share": idle,
+        "idle_share_by_layer": idle_by_layer,
+        "idle_share_elsewhere": idle - sum(v or 0.0
+                                           for v in idle_by_layer.values()),
         "kernel_launches_per_frame": launches / n,
         "lk_level_ms_per_frame": sum(_device_time(e)
                                      for e in lk_kernels) / 1e3 / n,

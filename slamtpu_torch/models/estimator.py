@@ -43,6 +43,7 @@ class Estimator:
         self.new_kf_available = False
         self.defer_ba = params.defer_ba
         self._pending = None
+        self._pending_fid = None    # the frame id of the pending solve's KF
 
     # -- queue (estimator.jl:117-141) ------------------------------------------
 
@@ -61,7 +62,8 @@ class Estimator:
     def process(self, new_kf: Frame):
         self.flush()
         if self.params.do_local_bundle_adjustment and new_kf.kfid >= 2:
-            with self.map_manager.optimization_lock, TIMERS.stage("es.ba"):
+            with self.map_manager.optimization_lock, \
+                    TIMERS.stage("es.ba", frame=new_kf.id):
                 self.local_bundle_adjustment(new_kf)
         if not self.defer_ba:
             self.flush()
@@ -75,11 +77,13 @@ class Estimator:
             return
         cache, res_dev, kfid, n_poses, n_points, n_obs = self._pending
         self._pending = None
+        fid = self._pending_fid
         try:
-            with TIMERS.stage("es.ba_fetch"):
+            with TIMERS.stage("es.ba_fetch", frame=fid, wait=True):
                 res = {k: v.cpu().numpy() for k, v in res_dev.items()}
             with self.map_manager.optimization_lock, \
-                    self.map_manager.map_lock, TIMERS.stage("es.ba_apply"):
+                    self.map_manager.map_lock, \
+                    TIMERS.stage("es.ba_apply", frame=fid):
                 self._update_ba_parameters(cache, res, kfid,
                                            n_poses, n_points, n_obs)
         finally:
@@ -260,6 +264,7 @@ class Estimator:
             # next keyframe (or at finish()).
             self._pending = (cache, res, new_frame.kfid, n_poses, n_points,
                              n_obs)
+            self._pending_fid = new_frame.id
         except Exception:
             p.local_ba_on = False
             raise

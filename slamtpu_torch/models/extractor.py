@@ -62,7 +62,7 @@ class Extractor:
                 radius=self.radius, min_response=self.min_response,
                 subpix=self.subpix,
             )
-        with TIMERS.stage("ex.fetch"):
+        with TIMERS.stage("ex.fetch", wait=True):
             vals, ys, xs = (t.cpu().numpy() for t in (vals, ys, xs))
         out = []
         k = min(n_cell_detect, vals.shape[1])

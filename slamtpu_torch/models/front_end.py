@@ -366,7 +366,7 @@ class FrontEnd:
         self.previous_pyramid = self.current_pyramid
         self.current_pyramid = pyr_cur
         self.current_image_dev = image_dev
-        with TIMERS.stage("fe.fused.fetch"):
+        with TIMERS.stage("fe.fused.fetch", wait=True):
             res = (per_kp.cpu().numpy(), scalars.cpu().numpy())
         return res, ids, attempted, has_mp
 
@@ -613,7 +613,7 @@ class FrontEnd:
             else time - self._last_dispatch_time
         )
         self._last_dispatch_time = time
-        with TIMERS.stage("fe.pipe.dispatch"):
+        with TIMERS.stage("fe.pipe.dispatch", frame=fid):
             new_carry, per_kp, scalars = ts.track_step(
                 self._carry, image_dev, float(np.float32(dt)),
                 self._ransac_key(2, fid),
@@ -650,7 +650,7 @@ class FrontEnd:
         has_mp = per_kp[:n, 12] > 0
         stale = rec.fid in self._stale_kf_fids
         self._stale_kf_fids.discard(rec.fid)
-        with TIMERS.stage("fe.pipe.apply"):
+        with TIMERS.stage("fe.pipe.apply", frame=rec.fid):
             return self._apply_fused(
                 (per_kp, scalars), self._slot_ids, attempted,
                 has_mp, frame, prev_kf, rec.time, slam_io,

@@ -193,7 +193,7 @@ class Mapper:
                     height=frame.camera.height, width=frame.camera.width,
                     stereo_1d=p.stereo_klt_1d, subpix=p.subpixel_detect,
                 )
-            with TIMERS.stage("mp.kf_fused.fetch"):
+            with TIMERS.stage("mp.kf_fused.fetch", wait=True):
                 per_slot = per_slot.cpu().numpy()
                 n_new = int(n_new)
 
@@ -390,7 +390,7 @@ class Mapper:
         frame = self.current_frame
         ext = mm.extractor
 
-        with TIMERS.stage("mp.kf_async.dispatch"):
+        with TIMERS.stage("mp.kf_async.dispatch", frame=frame.id):
             mm.prepare_frame()  # sets frame.kfid (map_manager.jl:79-96)
             with TIMERS.stage("mp.kf_async.assemble"):
                 state, tri_cand, group_data, free_list = (
@@ -513,8 +513,9 @@ class Mapper:
         slot_ids = pending.slot_ids
         cap = self.params.keypoint_capacity
 
-        with mm.map_lock, TIMERS.stage("mp.kf_async.apply"):
-            with TIMERS.stage("mp.kf_async.fetch"):
+        with mm.map_lock, TIMERS.stage("mp.kf_async.apply",
+                                        frame=pending.fid):
+            with TIMERS.stage("mp.kf_async.fetch", wait=True):
                 per_slot = pending.per_slot.cpu().numpy()
                 n_new = int(pending.n_new)
                 caught = (None if pending.adopt_caught is None

@@ -45,6 +45,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import programs
 from ..camera import Camera
 from .frame import Frame
 from ..params import Params
@@ -173,7 +174,7 @@ class SlamManager:
             return upload(arr, self.device)
 
     def _process_frame(self, image, right_image, time: float):
-        with TIMERS.stage("sm.frame"):
+        with TIMERS.stage("sm.frame", frame=self.frame_id + 1):
             self._process_frame_inner(image, right_image, time)
 
     def _process_frame_inner(self, image, right_image, time: float):
@@ -259,7 +260,7 @@ class SlamManager:
             return True
         self._pending_kf = None
         fe = self.front_end
-        with TIMERS.stage("sm.drain_kf"):
+        with TIMERS.stage("sm.drain_kf", frame=pending.fid):
             ok = self.mapper.apply_async_keyframe(pending)
             if self.params.reset_required:
                 self.reset()
@@ -288,7 +289,7 @@ class SlamManager:
         rec = fe.inflight.popleft()
         self.current_frame.id = rec.fid
         self.current_frame.time = rec.time
-        with TIMERS.stage("fe.pipe.fetch"):
+        with TIMERS.stage("fe.pipe.fetch", frame=rec.fid, wait=True):
             per_kp, scalars = rec.fetch()
         is_kf_required = fe.pipeline_apply(rec, per_kp, scalars, self.slam_io)
 
@@ -420,6 +421,7 @@ class SlamManager:
             self._pipeline_apply_one()
         self._drain_pending_kf()
         self.mapper.estimator.flush()
+        programs.read_device_times()
 
     def wait(self):
         """Sequential mode: the same as finish(). Threaded mode: wait until

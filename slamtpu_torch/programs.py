@@ -34,7 +34,16 @@ function so that on the card it runs as one CUDA graph replay:
   - launch counts: under replay no Python wrapper runs, so each kernel
     wrapper's `launches` count (kernels.count_launch) would stop. A capture
     records how far each count would have moved (kernels.recording_launches)
-    and every replay adds that amount.
+    and every replay adds that amount;
+  - spans (utils/profiling.py): a call is the span `programs.<pool>`, a
+    capture the span `programs.capture` (its info: the step and the key);
+  - device time: a pair of timing events on the caller's stream brackets
+    each `replay()` (copy-in and clone-out outside it). The pair is read
+    without waiting (`Event.query()`) at the program's next call and at
+    `read_device_times()` (SlamManager.finish), and its ms go to the
+    recorder as `programs.<pool>.device`, with the frame id and the
+    `profiled` flag of the call's span. A pair recorded before a
+    `TIMERS.reset()` is dropped. The events return to the pool's free list.
 
 While a step is being captured no thread may synchronize the whole device
 (`torch.cuda.synchronize()`): CUDA refuses to synchronize a device with a
@@ -57,10 +66,12 @@ import contextlib
 import ctypes
 import threading
 import time
+from collections import deque
 
 import torch
 
 from . import kernels
+from .utils.profiling import TIMERS
 
 _LOCAL = threading.local()
 _CAPTURE_LOCK = threading.RLock()
@@ -210,15 +221,22 @@ class Pool:
 
 class _Card:
     """A pool's state on one card: the event recorded after the last
-    clone-out and the side stream of its warm-ups and captures."""
+    clone-out, the side stream of its warm-ups and captures, and the free
+    timing events of its replays."""
 
     def __init__(self, device):
         with torch.cuda.device(device):
             self.done = torch.cuda.Event()
             self.stream = torch.cuda.Stream(device)
+        self.events: list = []
+
+    def timing_event(self):
+        return (self.events.pop() if self.events
+                else torch.cuda.Event(enable_timing=True))
 
 
 POOLS: dict = {}
+PROGRAMS: list = []
 
 
 def pool(name: str) -> Pool:
@@ -283,7 +301,12 @@ class Program:
         self.name = name
         self.pool = pool(pool_name)
         self.entries: dict = {}
+        self.span = f"programs.{pool_name}"
+        # Replays' event pairs not read yet: (start, end, card, epoch,
+        # span), oldest first.
+        self._timed: deque = deque()
         self.__doc__ = fn.__doc__
+        PROGRAMS.append(self)
 
     def key(self, *args, **static):
         flat = []
@@ -303,23 +326,45 @@ class Program:
         spec = _flatten(args, flat)
         if (not any(t.is_cuda for t in flat) or eager_active()
                 or torch.cuda.is_current_stream_capturing()):
-            return self.fn(*args, **static)
+            with TIMERS.stage(self.span):
+                return self.fn(*args, **static)
         key = self._key(spec, flat, static)
         dev = key[3]
-        with self.pool.lock, torch.cuda.device(dev):
+        with TIMERS.stage(self.span) as span, self.pool.lock, \
+                torch.cuda.device(dev):
             card = self.pool.card(dev)
             stream = torch.cuda.current_stream(dev)
             stream.wait_event(card.done)
+            self._read_device_times()
             entry = self.entries.get(key)
             if entry is None:
-                entry = self._capture(key, flat, static, stream, card.stream)
+                with TIMERS.stage("programs.capture",
+                                  info=f"{self.name} {_describe(key)}"):
+                    entry = self._capture(key, flat, static, stream,
+                                          card.stream)
                 self.entries[key] = entry
             else:
                 entry.copy_in(flat)
+            start, end = card.timing_event(), card.timing_event()
+            start.record(stream)
             entry.replay()
+            end.record(stream)
+            self._timed.append((start, end, card, TIMERS.epoch, span))
             out = entry.clone_out()
             card.done.record(stream)
         return out
+
+    def _read_device_times(self):
+        """The finished replays' device ms into the recorder, oldest
+        first; never waits for the card. Under the pool's lock."""
+        timed = self._timed
+        while timed and timed[0][1].query():
+            start, end, card, epoch, span = timed.popleft()
+            if epoch == TIMERS.epoch:
+                TIMERS.add_device(f"{self.span}.device",
+                                  start.elapsed_time(end), span.frame,
+                                  span.id, span.profiled)
+            card.events += (start, end)
 
     def _capture(self, key, flat, static, stream, side):
         t0 = time.perf_counter()
@@ -369,6 +414,18 @@ class Program:
                  "capture_ms": e.capture_ms, "nodes": e.nodes,
                  "replays": e.replays}
                 for k, e in list(self.entries.items())]
+
+
+def read_device_times():
+    """Every program's finished replays into the recorder, without waiting
+    for the card; a program whose pool another thread holds is read at its
+    next call."""
+    for prog in PROGRAMS:
+        if prog.pool.lock.acquire(blocking=False):
+            try:
+                prog._read_device_times()
+            finally:
+                prog.pool.lock.release()
 
 
 def _describe(key) -> str:

@@ -334,3 +334,50 @@ def test_replay_counts_each_kernel_launch():
     for _ in range(3):
         ts.track_step(carry, images[0], 0.1, (0, 41), **kw)
     assert lk.lk_level.launches - before == 3 * eager_launches > 0
+
+
+def test_replay_device_time_from_events_without_a_sync():
+    """A replay's CUDA-event ms is positive and no larger than the host
+    time around a synchronized call; the next call and
+    `read_device_times()` read the events with synchronizing CUDA calls
+    turned into errors; the record carries the frame id of the span the
+    replay ran in, and a reset drops a pair recorded before it."""
+    import time
+
+    from slamtpu_torch.utils.profiling import TIMERS
+
+    params = Params(stereo=True)
+    carry, images, kw = tracking_inputs(params, "cuda")
+    ts.track_step(carry, images[0], 0.1, (0, 51), **kw)      # capture
+    torch.cuda.synchronize()
+    programs.read_device_times()
+    TIMERS.reset()
+    name = "programs.track_step.device"
+    t0 = time.perf_counter()
+    with TIMERS.stage("probe", frame=17):
+        ts.track_step(carry, images[1], 0.1, (0, 52), **kw)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts.track_step(carry, images[2], 0.1, (0, 53), **kw)  # reads the 1st
+        first = [d for d in TIMERS.device_times() if d.name == name]
+        deadline = time.monotonic() + 30
+        while (not torch.cuda.current_stream().query()
+               and time.monotonic() < deadline):
+            time.sleep(1e-3)
+        programs.read_device_times()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = [d for d in TIMERS.device_times() if d.name == name]
+    assert len(first) == 1 and len(got) == 2
+    assert 0 < got[0].ms <= host_ms, (got[0].ms, host_ms)
+    assert got[0].frame == 17 and not got[0].profiled
+    assert got[1].frame is None and got[1].ms > 0
+    assert TIMERS.durations[name][0] == got[0].ms / 1e3
+    # A pair recorded before a reset is dropped when read.
+    ts.track_step(carry, images[3], 0.1, (0, 54), **kw)
+    TIMERS.reset()
+    torch.cuda.synchronize()
+    programs.read_device_times()
+    assert not TIMERS.device_times()
