@@ -29,11 +29,11 @@ Phases, one line each; any failure raises and exits nonzero:
      CPU run of this scene and Params: 9 keyframes, 0.0205 m);
   6. the default path: bench.py's 60-frame 376x1241 city scene with
      Params(stereo=True) — pipelined tracking, the carry-chained async
-     keyframe program, deferred local BA, both the tracking step and BA as
-     CUDA graph replays (slamtpu_torch/programs.py) — with every tracked
-     frame's step (its LK cascade, and at its first call the eager warm-up
-     and the capture) run under torch.cuda.set_sync_debug_mode("error");
-     asserts no
+     keyframe program, deferred local BA, the tracking step, the keyframe
+     program and BA as CUDA graph replays (slamtpu_torch/programs.py) —
+     with every tracked frame's step and every keyframe program (and at
+     its first call the eager warm-up and the capture) run under
+     torch.cuda.set_sync_debug_mode("error"); asserts no
      reset, a finite 60-pose trajectory, > 40 pipelined dispatches, >= 3
      async keyframes, >= 2 BA results applied, K2 launched at least once per
      keyframe program, the level kernel launched, standalone K1 not
@@ -60,8 +60,8 @@ Phases, one line each; any failure raises and exits nonzero:
      (tests/fixtures/kitti05_demo.npz) with tests/test_real_frames.py's
      mono Params and asserts;
   9. the variant path: the 30-frame city scene with Params(stereo=True,
-     stereo_klt_1d=True, subpixel_detect=True), every keyframe program's
-     stereo cascade under set_sync_debug_mode("error"); asserts no reset,
+     stereo_klt_1d=True, subpixel_detect=True), every keyframe program
+     under set_sync_debug_mode("error"); asserts no reset,
      6 to 10 keyframes, metric ATE <= 2x the JAX package's CPU run +
      0.01 m, standalone K1 and K2 launched at least once per keyframe
      program and the 1-D mode launched;
@@ -77,8 +77,8 @@ Phases, one line each; any failure raises and exits nonzero:
      >= 687 descriptors). Each asserts no reset, keyframes within 2 of the
      JAX package's CPU run and metric ATE <= 2x its ATE + 0.01 m
      (JAX_ROUTES), the 2-D level kernel and K2 launched and standalone K1
-     and the 1-D mode not, every keyframe program's stereo cascade and
-     every carry_adopt_kf free of host syncs (set_sync_debug_mode
+     and the 1-D mode not, every keyframe program and every
+     carry_adopt_kf free of host syncs (set_sync_debug_mode
      "error"); prints the FPS after 5 frames, the stage timers and the
      launch counts.
   14. threaded mode: bench.py's 60-frame city scene with
@@ -186,21 +186,24 @@ Phases, one line each; any failure raises and exits nonzero:
      the kernels and no device-memory growth; prints the votes and
      breaks, the FPS after frame 15, what wait() left and each thread's
      stage timers.
-  23. programs: track_step and local_bundle_adjustment_packed, the JAX
-     package's jitted programs, as captured CUDA graphs
-     (slamtpu_torch/programs.py): each replay against its eager call
-     (programs.eager()) on the inputs kept from phases 6, 7 (also at the
-     five-point key), 18, 19, 20 and 21 — every output equal; then
+  23. programs: track_step, keyframe_step_carry and
+     local_bundle_adjustment_packed, the JAX package's jitted programs, as
+     captured CUDA graphs (slamtpu_torch/programs.py): each replay against
+     its eager call (programs.eager()) on the inputs kept from phases 6, 7
+     (also at the five-point key), 18, 19, 20 and 21 — every output equal,
+     the keyframe program's on phases 6's and 18's inputs at least; then
      bench.py's 60-frame default path under programs.eager() and with the
      graphs, in this process — the same keyframe ids and ATE, one
-     track_step replay a dispatch and one BA replay a solve, at most 100
+     track_step replay a dispatch, one keyframe replay an async keyframe
+     and one BA replay a solve, at most 100
      kernel launches (graph launches included) a tracked frame outside
      keyframes over frames 20-30 (torch.profiler), the level kernel and K2
      counted through the replays; prints both runs' launches a frame,
      fe.pipe.dispatch and es.ba p50, BA ms by bucket, FPS after frame 15
      and every captured key's capture ms, nodes and replays and the pools'
      MiB.
-Phases 3-22 run the pipelined tracking step and local BA as graph replays;
+Phases 3-22 run the pipelined tracking step, the keyframe program and
+local BA as graph replays;
 a replay adds to each kernel's count what its capture recorded.
 Each path's kernel counts are set to 0 just before it runs and read just
 after. Then one JSON line with per-kernel numbers (ms: median CUDA-event
@@ -368,9 +371,9 @@ KEEP_CALL = 30
 @contextlib.contextmanager
 def _keeping_inputs(tag):
     """While a path runs, keep a copy of the inputs of its KEEP_CALL-th
-    track_step call and of its largest local BA solve (by P, X, O) in
-    PROGRAM_INPUTS, for phase 23. The copies are made before the call, on
-    the caller's stream, outside any capture."""
+    track_step call, of its last keyframe program and of its largest local
+    BA solve (by P, X, O) in PROGRAM_INPUTS, for phase 23. The copies are
+    made before the call, on the caller's stream, outside any capture."""
     from slamtpu_torch import programs
 
     orig = programs.Program.__call__
@@ -381,6 +384,8 @@ def _keeping_inputs(tag):
         kept = PROGRAM_INPUTS.get((tag, self.name))
         if self.name == "track_step":
             keep = n <= KEEP_CALL
+        elif self.name == "keyframe_step_carry":
+            keep = True
         else:
             size = tuple(static.get(k, 0) for k in ("P", "X", "O"))
             keep = kept is None or size >= kept[2]
@@ -1074,6 +1079,7 @@ def phase_default_path(dev):
     from slamtpu_torch import Params, ReplaySaver, SlamManager
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.models import estimator as est_mod
+    from slamtpu_torch.ops import keyframe_step as ks_mod
     from slamtpu_torch.ops import track_step as ts_mod
     from slamtpu_torch.ops.keyframe_step import keyframe_step_carry
     from slamtpu_torch.utils.profiling import TIMERS
@@ -1092,14 +1098,15 @@ def phase_default_path(dev):
         ba_calls.append((buf, kw))
         return ba_orig(buf, **kw)
 
-    # Every tracked frame's step (its LK cascade, its graph's copy-in,
-    # replay and clone-out, and on its first call the eager warm-up and the
-    # capture) runs with synchronizing calls turned into errors: it must
-    # issue no host sync.
+    # Every tracked frame's step and every keyframe program (the graph's
+    # copy-in, replay and clone-out, and on the first call the eager
+    # warm-up and the capture) runs with synchronizing calls turned into
+    # errors: it must issue no host sync.
     step_orig = ts_mod.track_step
-    no_sync_steps = []
+    no_sync_steps, no_sync_kfs = [], []
     est_mod.local_bundle_adjustment_packed = ba_spy
     ts_mod.track_step = _no_sync(step_orig, no_sync_steps)
+    ks_mod.keyframe_step_carry = _no_sync(keyframe_step_carry, no_sync_kfs)
     TIMERS.reset()
     _reset_counts()
     keyframe_step_carry.launches = 0
@@ -1118,6 +1125,7 @@ def phase_default_path(dev):
     finally:
         est_mod.local_bundle_adjustment_packed = ba_orig
         ts_mod.track_step = step_orig
+        ks_mod.keyframe_step_carry = keyframe_step_carry
     t1 = time.perf_counter()
     launches = _read_counts()
     kf_programs = keyframe_step_carry.launches
@@ -1178,6 +1186,11 @@ def phase_default_path(dev):
         raise AssertionError(f"{len(no_sync_steps)} tracking steps ran "
                              "under sync debug mode for "
                              f"{calls('fe.pipe.dispatch')} dispatches")
+    if len(no_sync_kfs) != calls("mp.kf_async.dispatch"):
+        raise AssertionError(f"{len(no_sync_kfs)} keyframe programs ran "
+                             "under sync debug mode for "
+                             f"{calls('mp.kf_async.dispatch')} async "
+                             "keyframes")
     _check_path_kernels("default", launches)
     if abs(n_kf - JAX_DEFAULT_KFS) > 2:
         raise AssertionError(f"{n_kf} keyframes, expected "
@@ -1456,6 +1469,7 @@ def phase_variant_path(dev):
     from slamtpu_torch import Params, ReplaySaver, SlamManager
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.ops import keyframe_step as ks_mod
+    from slamtpu_torch.utils.profiling import TIMERS
 
     scene, frames = _city_scene(30)
     params = Params(stereo=True, stereo_klt_1d=True, subpixel_detect=True)
@@ -1464,23 +1478,15 @@ def phase_variant_path(dev):
                      slam_io=saver, device=dev)
     resets = _counting_resets(sm)
 
-    # Every keyframe program's stereo cascade runs with synchronizing calls
-    # turned into errors.
-    cascade_orig = ks_mod.fb_cascade
-    no_sync_cascades = []
-
-    def cascade_no_sync(*args, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = cascade_orig(*args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        no_sync_cascades.append(kw.get("one_d", False))
-        return out
-
-    ks_mod.fb_cascade = cascade_no_sync
+    # Every keyframe program (on its first call the eager warm-up and the
+    # capture, its 1-D stereo cascade among them) runs with synchronizing
+    # calls turned into errors.
+    kf_orig = ks_mod.keyframe_step_carry
+    no_sync_kfs = []
+    ks_mod.keyframe_step_carry = _no_sync(kf_orig, no_sync_kfs)
     _reset_counts()
-    ks_mod.keyframe_step_carry.launches = 0
+    kf_orig.launches = 0
+    TIMERS.reset()
     t0 = time.perf_counter()
     try:
         for i, (left, right) in enumerate(frames):
@@ -1488,10 +1494,12 @@ def phase_variant_path(dev):
         sm.finish()
         torch.cuda.synchronize()
     finally:
-        ks_mod.fb_cascade = cascade_orig
+        ks_mod.keyframe_step_carry = kf_orig
     t1 = time.perf_counter()
     launches = _read_counts()
-    kf_programs = ks_mod.keyframe_step_carry.launches
+    kf_programs = kf_orig.launches
+    async_kfs = TIMERS.summary().get("mp.kf_async.dispatch",
+                                     {}).get("calls", 0)
 
     est = saver.trajectory_xyz().astype(np.float64)
     gt = np.stack([p[:3, 3] for p in scene.poses_wc])
@@ -1504,7 +1512,8 @@ def phase_variant_path(dev):
     _log("variant_path", frames=len(frames), total_s=f"{t1 - t0:.3f}",
          keyframes=n_kf, resets=resets["n"], ate_m=f"{ate:.5f}",
          path_m=f"{path:.3f}", keyframe_programs=kf_programs,
-         stereo_cascades_without_sync=len(no_sync_cascades),
+         async_keyframes=async_kfs,
+         keyframe_programs_without_sync=len(no_sync_kfs),
          launches=json.dumps(launches, separators=(",", ":")))
 
     if resets["n"]:
@@ -1522,10 +1531,10 @@ def phase_variant_path(dev):
         raise AssertionError(f"K1 / K2 launched {launches['window_gather']} "
                              f"/ {launches['suppress_nms']} times for "
                              f"{kf_programs} keyframe programs")
-    if len(no_sync_cascades) != kf_programs or not all(no_sync_cascades):
-        raise AssertionError(f"{len(no_sync_cascades)} 1-D stereo cascades "
-                             f"ran under sync debug mode for {kf_programs} "
-                             "keyframe programs")
+    if not len(no_sync_kfs) == async_kfs >= 1:
+        raise AssertionError(f"{len(no_sync_kfs)} keyframe programs ran "
+                             f"under sync debug mode for {async_kfs} async "
+                             "keyframes")
     return launches
 
 
@@ -1549,8 +1558,8 @@ THREADED = {}
 
 def _stereo_route(dev, route, **overrides):
     """The 30-frame stereo city scene through add_stereo_image + finish()
-    with Params(stereo=True, **overrides); every stereo cascade of either
-    keyframe program and every carry_adopt_kf under sync debug mode "error".
+    with Params(stereo=True, **overrides); every call of either keyframe
+    program and every carry_adopt_kf under sync debug mode "error".
     Checks no reset, keyframes and metric ATE against JAX_ROUTES[route], and
     the path's kernels; prints the FPS after 5 frames, the engagement, the
     stage timers and the launch counts. Returns the run's record."""
@@ -1577,14 +1586,17 @@ def _stereo_route(dev, route, **overrides):
         merge_orig(prev_id, new_id)
 
     sm.map_manager.merge_mappoints = merge_counted
-    cascade_orig, adopt_orig = ks_mod.fb_cascade, ts_mod.carry_adopt_kf
-    no_sync_cascades, no_sync_adopts = [], []
-    ks_mod.fb_cascade = _no_sync(cascade_orig, no_sync_cascades)
-    ts_mod.carry_adopt_kf = _no_sync(adopt_orig, no_sync_adopts)
+    kf_orig, kf_carry_orig, adopt_orig = (
+        ks_mod.keyframe_step, ks_mod.keyframe_step_carry,
+        ts_mod.carry_adopt_kf)
+    no_sync_programs, no_sync_adopts = [], []
     TIMERS.reset()
     _reset_counts()
-    ks_mod.keyframe_step.launches = 0
-    ks_mod.keyframe_step_carry.launches = 0
+    kf_orig.launches = 0
+    kf_carry_orig.launches = 0
+    ks_mod.keyframe_step = _no_sync(kf_orig, no_sync_programs)
+    ks_mod.keyframe_step_carry = _no_sync(kf_carry_orig, no_sync_programs)
+    ts_mod.carry_adopt_kf = _no_sync(adopt_orig, no_sync_adopts)
     warm = 5
     t_warm = None
     t0 = time.perf_counter()
@@ -1597,7 +1609,8 @@ def _stereo_route(dev, route, **overrides):
         sm.finish()
         torch.cuda.synchronize()
     finally:
-        ks_mod.fb_cascade = cascade_orig
+        ks_mod.keyframe_step = kf_orig
+        ks_mod.keyframe_step_carry = kf_carry_orig
         ts_mod.carry_adopt_kf = adopt_orig
     t1 = time.perf_counter()
     launches = _read_counts()
@@ -1621,7 +1634,7 @@ def _stereo_route(dev, route, **overrides):
         merges=merges[0], adopts=sm.front_end._n_kf_adopts,
         kf_programs=ks_mod.keyframe_step.launches,
         kf_carry_programs=ks_mod.keyframe_step_carry.launches,
-        cascades_without_sync=len(no_sync_cascades),
+        programs_without_sync=len(no_sync_programs),
         adopts_without_sync=len(no_sync_adopts),
         fps=(len(frames) - warm) / (t1 - t_warm))
     FPS[route] = rec["fps"]
@@ -1643,7 +1656,7 @@ def _stereo_route(dev, route, **overrides):
          ba_applied=calls("es.ba_apply"),
          keyframe_programs=rec["kf_programs"],
          carry_keyframe_programs=rec["kf_carry_programs"],
-         stereo_cascades_without_sync=rec["cascades_without_sync"],
+         keyframe_programs_without_sync=rec["programs_without_sync"],
          adopts_without_sync=rec["adopts_without_sync"],
          launches=json.dumps(launches, separators=(",", ":")))
     print(f"[{route}] stage_timers " + json.dumps(_stage_summary(
@@ -1660,11 +1673,11 @@ def _stereo_route(dev, route, **overrides):
         raise AssertionError(f"{route}: metric ATE {rec['ate']:.4f} m > "
                              f"{ate_bound:.4f} m")
     _check_path_kernels(route, launches)
-    programs = rec["kf_programs"] + rec["kf_carry_programs"]
-    if rec["cascades_without_sync"] != programs:
-        raise AssertionError(f"{route}: {rec['cascades_without_sync']} "
-                             "stereo cascades ran under sync debug mode for "
-                             f"{programs} keyframe programs")
+    programs = calls("mp.kf_fused.dispatch") + calls("mp.kf_async.dispatch")
+    if rec["programs_without_sync"] != programs:
+        raise AssertionError(f"{route}: {rec['programs_without_sync']} "
+                             "keyframe programs ran under sync debug mode "
+                             f"for {programs} keyframe dispatches")
     if rec["adopts_without_sync"] != rec["adopts"]:
         raise AssertionError(f"{route}: {rec['adopts_without_sync']} of "
                              f"{rec['adopts']} adopts ran under sync debug "
@@ -2370,17 +2383,19 @@ def phase_dense_path(dev):
     FREE_CAP beside the JAX package's; asserts their number and the
     largest within 2 of the JAX package's (the keyframe tolerance).
     Captures level-0 and level-4 level calls and one K2 call (N = 2048,
-    from frame 20 on) into DENSE_INPUTS."""
+    from frame 20 on: the path's last keyframe program, run once more
+    eagerly after the run) into DENSE_INPUTS."""
     import collections
 
     import numpy as np
     import torch
 
-    from slamtpu_torch import Params, ReplaySaver, SlamManager
+    from slamtpu_torch import Params, ReplaySaver, SlamManager, programs
     from slamtpu_torch.datasets.synthetic import make_scene
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.models import estimator as est_mod
     from slamtpu_torch.ops import detect_suppress as ds
+    from slamtpu_torch.ops import keyframe_step as ks_mod
     from slamtpu_torch.ops import lucas_kanade as lk
     from slamtpu_torch.ops import track_step as ts_mod
     from slamtpu_torch.utils.profiling import TIMERS
@@ -2469,15 +2484,23 @@ def phase_dense_path(dev):
                     first_kf = sm.front_end.current_frame.nb_keypoints
             sm.finish()
         torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = _read_counts()
+        run_peak = torch.cuda.max_memory_allocated()
+        # From frame 20 on the level kernel and K2 run inside graph
+        # replays, which no spy sees: the path's last keyframe program
+        # (kept by _keeping_inputs), run once more eagerly, hands the
+        # spies its calls.
+        args, static, _ = PROGRAM_INPUTS[("dense", "keyframe_step_carry")]
+        with programs.eager():
+            ks_mod._KEYFRAME_STEP(*args, **static)
+        torch.cuda.synchronize()
     finally:
         est_mod.local_bundle_adjustment_packed = ba_orig
         lk.lk_level_cuda = level_orig
         ds.suppress_and_nms_cuda = k2_orig
         ts_mod.track_step = step_orig
         logging.getLogger("slamtpu_torch.es").removeHandler(held)
-    t1 = time.perf_counter()
-    launches = _read_counts()
-    run_peak = torch.cuda.max_memory_allocated()
 
     est = saver.trajectory_xyz().astype(np.float64)
     gt = np.stack([q[:3, 3] for q in scene.poses_wc])
@@ -3581,6 +3604,7 @@ def _programs_run(dev, mode):
     from slamtpu_torch.eval.ate import ate_rmse
     from slamtpu_torch.models import estimator as est_mod
     from slamtpu_torch.ops import ba as ba_mod
+    from slamtpu_torch.ops import keyframe_step as ks_mod
     from slamtpu_torch.ops import track_step as ts_mod
     from slamtpu_torch.utils.profiling import TIMERS
 
@@ -3589,7 +3613,8 @@ def _programs_run(dev, mode):
     sm = SlamManager(Params(stereo=True), scene.camera,
                      right_camera=scene.right_camera, slam_io=saver,
                      device=dev)
-    steps = (ts_mod._TRACK_STEP, ba_mod.local_bundle_adjustment_packed)
+    steps = (ts_mod._TRACK_STEP, ks_mod._KEYFRAME_STEP,
+             ba_mod.local_bundle_adjustment_packed)
 
     def replays():
         return [sum(e.replays for e in p.entries.values()) for p in steps]
@@ -3689,8 +3714,11 @@ def _programs_run(dev, mode):
         ate_m=ate, resets=sm.n_resets, fps_after_15=fps,
         dispatches=summary.get("fe.pipe.dispatch", {}).get("calls", 0),
         ba_solves=len(solves),
+        async_keyframes=summary.get("mp.kf_async.dispatch",
+                                    {}).get("calls", 0),
         track_step_replays=steps_replayed[0],
-        ba_replays=steps_replayed[1],
+        keyframe_replays=steps_replayed[1],
+        ba_replays=steps_replayed[2],
         dispatch_p50_ms=p50("fe.pipe.dispatch"), ba_p50_ms=p50("es.ba"),
         ba_ms_by_bucket={f"P{k[0]}/X{k[1]}/O{k[2]}": dict(
             solves=len(v), median=sorted(v)[len(v) // 2], first=v[0])
@@ -3706,15 +3734,17 @@ def _programs_run(dev, mode):
 
 
 def phase_programs(dev):
-    """Phase 23: track_step and local BA as CUDA graphs (programs.py).
+    """Phase 23: track_step, the keyframe program and local BA as CUDA
+    graphs (programs.py).
 
     (a) On the inputs kept from phases 6, 7, 18, 19, 20 and 21
     (PROGRAM_INPUTS), and on phase 7's tracking inputs at the five-point
     key, each step's replay against its eager call: every output equal.
     (b) bench.py's 60-frame default path under programs.eager() and with
     the graphs, in this process: the same keyframe ids and the same ATE;
-    with the graphs, every dispatch one track_step replay and every solve
-    one BA replay, and at most MAX_GRAPHED_LAUNCHES kernel launches (graph
+    with the graphs, every dispatch one track_step replay, every async
+    keyframe one keyframe replay and every solve one BA replay, and at
+    most MAX_GRAPHED_LAUNCHES kernel launches (graph
     launches included) a tracked frame outside keyframes over frames 20-30
     (torch.profiler); the kernels' counts (replays add their captures')
     show the level kernel and K2. Prints, for both runs, the host's
@@ -3726,9 +3756,11 @@ def phase_programs(dev):
 
     from slamtpu_torch import programs
     from slamtpu_torch.ops import ba as ba_mod
+    from slamtpu_torch.ops import keyframe_step as ks_mod
     from slamtpu_torch.ops import track_step as ts_mod
 
     progs = {p.name: p for p in (ts_mod._TRACK_STEP,
+                                 ks_mod._KEYFRAME_STEP,
                                  ba_mod.local_bundle_adjustment_packed)}
     checks = []
     for (tag, name), (args, static, _) in sorted(PROGRAM_INPUTS.items()):
@@ -3751,6 +3783,11 @@ def phase_programs(dev):
     if not wanted <= tags:
         raise AssertionError(f"programs: no kept inputs of "
                              f"{sorted(wanted - tags)}")
+    kf_tags = {c["inputs"] for c in checks
+               if c["step"] == "keyframe_step_carry"}
+    if not {"default", "dense"} <= kf_tags:
+        raise AssertionError(f"programs: keyframe program inputs kept from "
+                             f"{sorted(kf_tags)} only")
     unequal = [c for c in checks if not c["equal"]]
     if unequal:
         raise AssertionError(f"programs: replays differ from their eager "
@@ -3772,7 +3809,9 @@ def phase_programs(dev):
              ate_m=f"{r['ate_m']:.5f}", resets=r["resets"],
              fps_after_15=f"{r['fps_after_15']:.3f}",
              dispatches=r["dispatches"], ba_solves=r["ba_solves"],
+             async_keyframes=r["async_keyframes"],
              track_step_replays=r["track_step_replays"],
+             keyframe_replays=r["keyframe_replays"],
              ba_replays=r["ba_replays"],
              dispatch_p50_ms=r["dispatch_p50_ms"],
              ba_p50_ms=r["ba_p50_ms"],
@@ -3797,13 +3836,17 @@ def phase_programs(dev):
                              f"{graphs['keyframe_ids']} {graphs['ate_m']!r} m")
     if graphs["resets"] or eager["resets"]:
         raise AssertionError("programs: a reset on the default path")
-    if eager["track_step_replays"] or eager["ba_replays"]:
+    if (eager["track_step_replays"] or eager["keyframe_replays"]
+            or eager["ba_replays"]):
         raise AssertionError("programs: a replay under programs.eager()")
     if not (graphs["track_step_replays"] == graphs["dispatches"] > 40
+            and graphs["keyframe_replays"] == graphs["async_keyframes"] >= 3
             and graphs["ba_replays"] == graphs["ba_solves"] >= 2):
         raise AssertionError(
             f"programs: {graphs['track_step_replays']} track_step replays "
             f"for {graphs['dispatches']} dispatches, "
+            f"{graphs['keyframe_replays']} keyframe replays for "
+            f"{graphs['async_keyframes']} async keyframes, "
             f"{graphs['ba_replays']} BA replays for {graphs['ba_solves']} "
             f"solves")
     tracked = graphs["tracked_frame_launches"]

@@ -20,6 +20,12 @@ accept/reject gate in f64 one frame behind from `per_slot`
 promotions in f32 so the next frames see the new 3D points at once, and a
 carry_merge correction reconciles the rest.
 
+`keyframe_step_carry` is the JAX package's jitted program: on the card one
+CUDA graph replay a keyframe (programs.py, pool "keyframe"), keyed on the
+static arguments and the input shapes; `keyframe_step_carry_eager` is the
+same step as plain PyTorch calls, which the CPU runs. `keyframe_step`
+stays eager.
+
 Detection suppression and NMS are `detect_suppress.suppress_and_nms`: the
 CUDA kernel K2 on a CUDA tensor, its plain version on a CPU tensor.
 Suppression stays before NMS. With `subpix` the detections are refined on
@@ -38,7 +44,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import kernels
+from .. import kernels, programs
+from ..device import upload
 from .detect_suppress import suppress_and_nms
 from .features import subpixel_refine
 from .frontend_step import _undistort_backproject
@@ -122,10 +129,13 @@ def state2_rows(cap: int) -> int:
     return cap + N_GROUPS + KS2_MISC_ROWS
 
 
-@functools.lru_cache(maxsize=8)
+# Unbounded: a captured CUDA graph (programs.py) reads the tensor by
+# address, so it may never be evicted and freed while a graph lives. Filled
+# through pinned memory: the first keyframe program issues no host sync.
+@functools.lru_cache(maxsize=None)
 def _blur3(device):
-    k = np.stack([gaussian_kernel_1d(1.0)] * 3)
-    return torch.from_numpy(np.ascontiguousarray(k, np.float32)).to(device)
+    return upload(np.stack([gaussian_kernel_1d(1.0)] * 3), device,
+                  np.float32)
 
 
 def _shi_tomasi_cells(pyr_left, px, occ_rows, *, pad, height, width,
@@ -240,7 +250,7 @@ def keyframe_step(pyr_left, right_image, state, *, levels: int, window: int,
     take rows n_old, n_old + 1, ... in row-major (cell, rank) order, the
     host's admission order. Returns (per_slot (cap, 12), n_new (0-d int
     tensor))."""
-    kernels.count_launch(keyframe_step)
+    kernels.count_launch(_COUNTED[0])
     cap = state.shape[0] - N_GROUPS - N_MISC_ROWS
     dev = state.device
     slots = state[:cap]
@@ -310,23 +320,21 @@ def keyframe_step(pyr_left, right_image, state, *, levels: int, window: int,
     return per_slot, n_new
 
 
-# Calls of the non-carry keyframe program in this process (on any device).
-keyframe_step.launches = 0
-
-
-def keyframe_step_carry(carry, right_image, state, *, levels: int,
-                        window: int, iters: int = 30, eps: float = 1e-2,
-                        eig_thresh: float = 1e-4, pad: int = 17,
-                        max_fb_distance: float = 1.0, sigma: float = 1.0,
-                        min_active: int = 0, cell_size: int = 35,
-                        radius: int = 17, min_response: float = 1e-4,
-                        height: int = 0, width: int = 0,
-                        threshold: float = 3.0, stereo_1d: bool = False,
-                        subpix: bool = False):
-    """One keyframe on the carry (the JAX program's arguments and results;
-    `state` is the (cap + N_GROUPS + KS2_MISC_ROWS, 16) f32 upload).
-    Returns (new_carry, per_slot (cap, 13), n_new (0-d int tensor))."""
-    kernels.count_launch(keyframe_step_carry)
+def keyframe_step_carry_eager(carry, right_image, state, *, levels: int,
+                              window: int, iters: int = 30,
+                              eps: float = 1e-2, eig_thresh: float = 1e-4,
+                              pad: int = 17, max_fb_distance: float = 1.0,
+                              sigma: float = 1.0, min_active: int = 0,
+                              cell_size: int = 35, radius: int = 17,
+                              min_response: float = 1e-4, height: int = 0,
+                              width: int = 0, threshold: float = 3.0,
+                              stereo_1d: bool = False, subpix: bool = False):
+    """One keyframe on the carry as plain PyTorch calls (the JAX program's
+    arguments; `state` is the (cap + N_GROUPS + KS2_MISC_ROWS, 16) f32
+    upload). Returns what it computes: (kp_new (cap, 10), misc_new (48,),
+    per_slot (cap, 13), n_new (0-d int tensor)); the post-keyframe carry's
+    pyramid is the input carry's."""
+    kernels.count_launch(_COUNTED[1])
     f32 = torch.float32
     kp = carry["kp"]
     misc_c = carry["misc"]
@@ -460,8 +468,6 @@ def keyframe_step_carry(carry, right_image, state, *, levels: int,
         misc_c[MS_INTRINSICS],
         misc_c[MS_DISTORTION],
     ])
-    new_carry = {"pyr": pyr_left, "kp": kp_new, "misc": misc_new}
-
     per_slot = torch.cat(
         [
             px_full,                                   # 0:2 (incl. new dets)
@@ -473,8 +479,30 @@ def keyframe_step_carry(carry, right_image, state, *, levels: int,
         ],
         dim=-1,
     )
-    return new_carry, per_slot, n_new
+    return kp_new, misc_new, per_slot, n_new
 
 
-# Calls of the keyframe program in this process (on any device).
+_KEYFRAME_STEP = programs.Program(keyframe_step_carry_eager,
+                                  "keyframe_step_carry", "keyframe")
+
+
+def keyframe_step_carry(carry, right_image, state, **static):
+    """`keyframe_step_carry_eager` as the JAX package's jitted program: one
+    captured CUDA graph replay on the card, the eager step on the CPU.
+    `static`: its keyword arguments (levels, window, ..., height, width,
+    stereo_1d, subpix), the key of the graph with the input shapes.
+    Returns (new_carry, per_slot (cap, 13), n_new (0-d int tensor));
+    `new_carry["pyr"]` is the caller's pyramid object, passed through."""
+    kp_new, misc_new, per_slot, n_new = _KEYFRAME_STEP(
+        carry, right_image, state, **static)
+    return ({"pyr": carry["pyr"], "kp": kp_new, "misc": misc_new},
+            per_slot, n_new)
+
+
+# Calls of each keyframe program in this process (on any device); a replay
+# adds its capture's count. The eager steps count on these two functions,
+# bound here once, so that a caller that replaces the module's attribute
+# (a spy, a sync check) still counts on the programs themselves.
+keyframe_step.launches = 0
 keyframe_step_carry.launches = 0
+_COUNTED = (keyframe_step, keyframe_step_carry)

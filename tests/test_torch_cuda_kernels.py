@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from slamtpu_torch import hostmath as hm
+from slamtpu_torch import programs
 from slamtpu_torch.datasets.synthetic import make_scene
 from slamtpu_torch.ops import detect_suppress as ds
 from slamtpu_torch.ops import keyframe_step as ks
@@ -316,10 +317,15 @@ def _keyframe_inputs(dev, cap=1024, n_old=300, seed=3):
 
 def test_keyframe_program_detections_match_plain_k2(monkeypatch):
     """The keyframe program's K2 call in place: its detections with the
-    CUDA kernel equal, bit for bit, the same call with the plain version."""
+    CUDA kernel equal, bit for bit, the same call with the plain version.
+    Both calls run eagerly (`programs.eager()`): a graph replay would not
+    see the plain version put in place (tests/test_torch_cuda_programs.py
+    holds the replay against the eager call)."""
     carry, right, state, kw = _keyframe_inputs("cuda")
     before = ds.suppress_and_nms.launches
-    _, per_slot, n_new = ks.keyframe_step_carry(carry, right, state, **kw)
+    with programs.eager():
+        _, per_slot, n_new = ks.keyframe_step_carry(carry, right, state,
+                                                    **kw)
     torch.cuda.synchronize()
     assert ds.suppress_and_nms.launches == before + 1
 
@@ -328,8 +334,9 @@ def test_keyframe_program_detections_match_plain_k2(monkeypatch):
                                          min_response=min_response)
 
     monkeypatch.setattr(ks, "suppress_and_nms", plain)
-    _, per_slot_p, n_new_p = ks.keyframe_step_carry(carry, right, state,
-                                                    **kw)
+    with programs.eager():
+        _, per_slot_p, n_new_p = ks.keyframe_step_carry(carry, right, state,
+                                                        **kw)
     torch.cuda.synchronize()
     assert ds.suppress_and_nms.launches == before + 1
     assert int(n_new) == int(n_new_p) > 0

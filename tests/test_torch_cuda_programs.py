@@ -1,10 +1,11 @@
 """The jitted steps as CUDA graphs (slamtpu_torch/programs.py), on the card.
 
-`track_step` and `local_bundle_adjustment_packed` replayed from their
-captured graphs against their eager calls (`programs.eager()`) on the same
-inputs: every output tensor equal, bit for bit (the graph launches the same
-kernels in the same order on the same shapes; cuBLAS sees the same shapes
-and workspace size, so it picks the same algorithms).
+`track_step`, `keyframe_step_carry` and `local_bundle_adjustment_packed`
+replayed from their captured graphs against their eager calls
+(`programs.eager()`) on the same inputs: every output tensor equal, bit for
+bit (the graph launches the same kernels in the same order on the same
+shapes; cuBLAS sees the same shapes and workspace size, so it picks the
+same algorithms).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere (decided at test setup, not
 at import). Imports only slamtpu_torch; run without tests/conftest.py,
@@ -22,7 +23,10 @@ import torch
 from slamtpu_torch import Params, programs
 from slamtpu_torch.datasets.synthetic import make_scene
 from slamtpu_torch.ops import ba
+from slamtpu_torch.ops import detect_suppress as ds
+from slamtpu_torch.ops import keyframe_step as ks
 from slamtpu_torch.ops import lucas_kanade as lk
+from slamtpu_torch.ops import window_gather as wg
 from slamtpu_torch.ops import track_step as ts
 from slamtpu_torch.ops.image import lk_pyramid_impl
 from slamtpu_torch.utils.padding import next_bucket
@@ -111,6 +115,83 @@ def tracking_inputs(params, device, *, height=376, width=1241,
                                     sigma=kw["sigma"], pad=kw["pad"]),
              "kp": t(kp), "misc": t(misc)}
     return carry, [t(im) for im in images[1:]], kw
+
+
+def keyframe_kwargs(params, camera):
+    """keyframe_step_carry's static arguments as
+    Mapper.dispatch_async_keyframe passes them."""
+    p = params
+    return dict(levels=p.pyramid_levels, window=p.window_size,
+                iters=p.lk_iterations, eps=p.lk_epsilon,
+                eig_thresh=p.lk_eigenvalue_threshold,
+                pad=lk.lk_pad(p.window_size),
+                max_fb_distance=p.max_ktl_distance, sigma=p.pyramid_sigma,
+                min_active=p.lk_min_active, cell_size=p.max_distance,
+                radius=max(5, p.max_distance // 2), min_response=1e-4,
+                height=camera.height, width=camera.width,
+                threshold=p.max_reprojection_error,
+                stereo_1d=p.stereo_klt_1d, subpix=p.subpixel_detect)
+
+
+def keyframe_inputs(params, device, *, height=376, width=1241,
+                    n_points=6000):
+    """(carry, right, state, kwargs): tracking_inputs' carry on frame 0
+    with the last 40% of its live slots emptied, the right image of frame
+    0 and the packed upload as
+    Mapper._assemble_async_state makes it: every 2-D slot a promotion
+    candidate, every other one also a temporal-DLT candidate first seen by
+    the keyframe at frame 3, every 40th live slot dropped by the host, the
+    slots past the live ones free for detection."""
+    from slamtpu_torch import hostmath as hm
+
+    carry, _, _ = tracking_inputs(params, device, height=height,
+                                  width=width, n_points=n_points)
+    scene, _ = city_scene(height, width, n_points)
+    cam, rcam = scene.camera, scene.right_camera
+    cap = params.keypoint_capacity
+    kp = carry["kp"].cpu().numpy()
+    kp[int(0.6 * (kp[:, ts.TK_FLAGS] > 0).sum()):] = 0.0
+    flags = kp[:, ts.TK_FLAGS].astype(np.int64)
+    live = np.flatnonzero(flags & ts.FL_VALID)
+    flat = np.flatnonzero(((flags & ts.FL_VALID) > 0)
+                          & ((flags & ts.FL_HAS_MP) == 0))
+    temporal = flat[::2]
+    state = np.zeros((ks.state2_rows(cap), 16), np.float32)
+    state[:cap, ks.KS2_GROUP] = -1.0
+    state[live, ks.KS2_UND] = kp[live, 0:2]
+    flags2 = np.zeros(cap, np.int64)
+    flags2[flat] |= ks.K2_TRICAND
+    flags2[temporal] |= ks.K2_TEMPORAL
+    flags2[live[::40]] = ks.K2_DROP
+    state[:cap, ks.KS2_FLAGS] = flags2
+    cw3 = np.linalg.inv(scene.poses_wc[3])
+    pc = kp[temporal, 2:5] @ cw3[:3, :3].T + cw3[:3, 3]
+    state[temporal, ks.KS2_OBS_UND] = np.stack(
+        [cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+         cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+    state[temporal, ks.KS2_GROUP] = 0
+    K4l = hm.mat3_to_4x4(cam.K)
+    state[cap] = (K4l @ hm.se3_inv(cw3 @ scene.poses_wc[0])).reshape(16)
+    free = np.full(cap, cap, np.float32)
+    free[:cap - len(live)] = np.arange(len(live), cap)
+    state[:cap, ks.KS2_FREE] = free
+    misc = np.zeros(ks.KS2_MISC_ROWS * 16, np.float32)
+    misc[ks.M2_P1] = K4l.reshape(16)
+    misc[ks.M2_P2R] = (hm.mat3_to_4x4(rcam.K) @ rcam.Ti0).reshape(16)
+    misc[ks.M2_INTR_R] = rcam.intrinsics_array()
+    misc[ks.M2_DIST_R] = rcam.distortion_array()
+    misc[ks.M2_INTR_L] = cam.intrinsics_array()
+    misc[ks.M2_DIST_L] = cam.distortion_array()
+    misc[ks.M2_CELL_DETECT] = 2
+    misc[ks.M2_NB_DETECT] = cap - len(live)
+    misc[ks.M2_APPLY5PT] = 1.0
+    misc[ks.M2_NFREE] = cap - len(live)
+    misc[ks.M2_TI0] = rcam.Ti0.reshape(16)
+    state[cap + ks.N_GROUPS:] = misc.reshape(ks.KS2_MISC_ROWS, 16)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    carry = dict(carry, kp=t(kp))
+    return (carry, t(scene.frame(0)[1]), t(state),
+            keyframe_kwargs(params, cam))
 
 
 _leaves = programs.leaves
@@ -222,6 +303,141 @@ def test_two_threads_replay_one_entry_on_two_streams():
         th.join()
     for g, w in zip(got, want):
         assert_trees_equal(g, w)
+
+
+@functools.lru_cache(maxsize=None)
+def pipelined_keyframe_calls(config, n_frames=16):
+    """The keyframe program's calls of a pipelined run on the card: the
+    city scene (6,000 points; 24,000 for the dense configuration) through
+    SlamManager with `CONFIGS[config]`, each call's inputs cloned before
+    it ran, with its static arguments."""
+    from slamtpu_torch import ReplaySaver, SlamManager
+
+    scene = make_scene(n_frames=n_frames, height=376, width=1241,
+                       n_points=24000 if config == "dense" else 6000,
+                       stereo=True, baseline=0.54, seed=7, layout="city")
+    calls = []
+    orig = ks.keyframe_step_carry
+
+    def keep(carry, right, state, **static):
+        calls.append((programs.clone_tree((carry, right, state)), static))
+        return orig(carry, right, state, **static)
+
+    sm = SlamManager(Params(**CONFIGS[config]), scene.camera,
+                     right_camera=scene.right_camera, slam_io=ReplaySaver(),
+                     device="cuda")
+    ks.keyframe_step_carry = keep
+    try:
+        for i in range(n_frames):
+            left, right = scene.frame(i)
+            sm.add_stereo_image(left, right, float(scene.timestamps[i]))
+        sm.finish()
+    finally:
+        ks.keyframe_step_carry = orig
+    torch.cuda.synchronize()
+    assert len(calls) >= 2
+    return calls
+
+
+def _keyframe_counts():
+    return [fn.launches for fn in (ks.keyframe_step_carry,
+                                   ds.suppress_and_nms, lk.lk_level,
+                                   lk.lk_level_1d, wg.gather_windows)]
+
+
+@pytest.mark.parametrize("config", ["default", "dense"])
+def test_keyframe_step_carry_replay_equals_eager(config):
+    """On every keyframe call of a pipelined run, the replay's outputs
+    equal the eager program's bit for bit, one replay a call; the returned
+    carry's pyramid is the caller's."""
+    calls = pipelined_keyframe_calls(config)
+    admitted = 0
+    for (carry, right, state), static in calls:
+        want = _eager(ks.keyframe_step_carry, carry, right, state, **static)
+        admitted = max(admitted, int(want[2]))
+        entry = _entry(ks._KEYFRAME_STEP, carry, right, state, **static)
+        replays = entry.replays
+        got = ks.keyframe_step_carry(carry, right, state, **static)
+        torch.cuda.synchronize()
+        assert entry.replays == replays + 1
+        assert got[0]["pyr"] is carry["pyr"]
+        assert_trees_equal(got, want)
+    assert admitted > 0
+
+
+def test_keyframe_step_carry_successive_replays_follow_their_inputs():
+    """Three replays with another right image, upload and carry each equal
+    their eager calls, and the first replay's tensors are unchanged after
+    three more."""
+    carry, right, state, kw = keyframe_inputs(Params(stereo=True), "cuda")
+    scene, _ = city_scene()
+    right1 = torch.from_numpy(scene.frame(1)[1]).cuda()
+    state2 = state.clone()
+    cap = carry["kp"].shape[0]
+    state2[cap + ks.N_GROUPS:].view(-1)[ks.M2_CELL_DETECT] = 1.0
+    moved = dict(carry, kp=carry["kp"].clone())
+    moved["kp"][:, ts.TK_PX] += 0.25
+    calls = [(carry, right, state), (carry, right1, state2),
+             (moved, right, state)]
+    want = [_eager(ks.keyframe_step_carry, *c, **kw) for c in calls]
+    assert not torch.equal(want[0][1], want[1][1])
+    assert not torch.equal(want[0][1], want[2][1])
+    got = [ks.keyframe_step_carry(*c, **kw) for c in calls]
+    torch.cuda.synchronize()
+    first = programs.clone_tree(got[0])
+    for g, w in zip(got, want):
+        assert_trees_equal(g, w)
+    got += [ks.keyframe_step_carry(*c, **kw) for c in calls]
+    torch.cuda.synchronize()
+    assert_trees_equal(got[0], first)
+
+
+def test_keyframe_step_carry_issues_no_host_sync():
+    """The eager program, then a capture and replays, with synchronizing
+    CUDA calls turned into errors; the variant's key too. The program's
+    first call fills `_blur3`'s cache: a fill under another device key
+    (the graphs read the filled entries by address) issues no sync
+    either."""
+    cases = [keyframe_inputs(Params(**c), "cuda") for c in (
+        dict(stereo=True),
+        dict(stereo=True, stereo_klt_1d=True, subpixel_detect=True))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ks._blur3("cuda")
+        for carry, right, state, kw in cases:
+            with programs.eager():
+                ks.keyframe_step_carry(carry, right, state, **kw)
+            for _ in range(2):
+                ks.keyframe_step_carry(carry, right, state, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("variant", [False, True])
+def test_keyframe_step_carry_replay_counts_each_launch(variant):
+    """keyframe_step_carry's count, K2's and the level kernel's (and with
+    the variant's options the 1-D mode's and K1's) move by the same
+    amounts a replay as an eager call."""
+    params = (Params(stereo=True, stereo_klt_1d=True, subpixel_detect=True)
+              if variant else Params(stereo=True))
+    carry, right, state, kw = keyframe_inputs(params, "cuda")
+    ks.keyframe_step_carry(carry, right, state, **kw)       # capture
+    before = _keyframe_counts()
+    with programs.eager():
+        ks.keyframe_step_carry(carry, right, state, **kw)
+    eager = [b - a for a, b in zip(before, _keyframe_counts())]
+    before = _keyframe_counts()
+    for _ in range(3):
+        ks.keyframe_step_carry(carry, right, state, **kw)
+    torch.cuda.synchronize()
+    replayed = [b - a for a, b in zip(before, _keyframe_counts())]
+    assert replayed == [3 * n for n in eager]
+    assert eager[0] == eager[1] == 1
+    # The 2-D level kernel, or with the variant its 1-D mode and K1.
+    assert (eager[2] > 0) != variant
+    assert (eager[3] > 0) == (eager[4] > 0) == variant
 
 
 def _ba_buffer(n_poses, n_points, n_obs, n_free, seed=0):

@@ -1,23 +1,24 @@
 """The jitted steps' program wrapper (slamtpu_torch/programs.py) on the CPU.
 
-On the card `track_step` and `local_bundle_adjustment_packed` run as
-captured CUDA graphs (tests/test_torch_cuda_programs.py holds each replay
-against its eager call there). Here, on the CPU, both run eagerly; these
-tests hold what the graphs rely on:
+On the card `track_step`, `keyframe_step_carry` and
+`local_bundle_adjustment_packed` run as captured CUDA graphs
+(tests/test_torch_cuda_programs.py holds each replay against its eager
+call there). Here, on the CPU, they run eagerly; these tests hold what the
+graphs rely on:
 
   (a) `dt` and the RANSAC key as device tensors (graph inputs) give the
       bits of the Python-scalar form, and the JAX package's track_step on
       the carries tests/test_torch_track_step.py captures, with that
       file's tolerances;
-  (b) no output of either step shares storage with an input, at the
-      default and the dense shapes (a graph's outputs are cloned, and a
-      view of an input would be a view of a static buffer);
+  (b) no output of a step shares storage with an input, at the default
+      and the dense shapes (a graph's outputs are cloned, and a view of an
+      input would be a view of a static buffer);
   (c) the cache key follows each static argument and each input shape,
       and nothing else;
   (d) a CPU call returns the eager function's output and captures nothing;
   (e) launch accounting: a capture records each wrapper's launches and
       every replay adds them;
-and that both steps are capturable: no tensor built from host data (a
+and that the steps are capturable: no tensor built from host data (a
 pageable host copy on the card) and no value read on the host (a sync),
 outside the kernels' plain versions, which the card never runs.
 """
@@ -31,9 +32,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from slamtpu_torch import Params, kernels, programs
 from slamtpu_torch.ops import ba
+from slamtpu_torch.ops import keyframe_step as ks
 from slamtpu_torch.ops import track_step as ts
 from slamtpu_torch.parallel.multi import make_ba_inputs
-from test_torch_cuda_programs import tracking_inputs
+from test_torch_cuda_programs import keyframe_inputs, tracking_inputs
 from test_torch_track_step import capture_pipelined_run, torch_carry
 
 torch.set_num_threads(2)
@@ -43,6 +45,10 @@ CONFIGS = {
     "dense": dict(stereo=True, max_nb_keypoints=2000, keypoint_capacity=2048,
                   pyramid_levels=4, max_distance=16, ba_window=30),
 }
+# The keyframe program's keys: the two configurations and the variant's
+# options (the level kernel's 1-D mode, K1's subpixel refinement).
+KEYFRAME_CONFIGS = dict(CONFIGS, stereo_1d_subpix=dict(
+    stereo=True, stereo_klt_1d=True, subpixel_detect=True))
 # A small city scene (the card tests use 376 x 1241).
 SMALL = dict(height=120, width=192, n_points=1500)
 
@@ -129,6 +135,25 @@ def test_track_step_outputs_share_no_input_storage(config):
     assert (out[1][:, 7] > 0).sum() > 50
 
 
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_keyframe_step_carry_outputs_share_no_input_storage(config):
+    """(b) The program's outputs (kp, misc, per_slot, n_new) are new
+    tensors; the returned carry's pyramid is the caller's object."""
+    carry, right, state, kw = keyframe_inputs(Params(**CONFIGS[config]),
+                                              "cpu", **SMALL)
+    inputs = (carry, right, state)
+    out = ks.keyframe_step_carry_eager(*inputs, **kw)
+    assert [t.shape for t in out[:3]] == [carry["kp"].shape,
+                                          carry["misc"].shape,
+                                          (carry["kp"].shape[0], 13)]
+    assert not _storages(out) & _storages(inputs)
+    new_carry, per_slot, n_new = ks.keyframe_step_carry(*inputs, **kw)
+    assert new_carry["pyr"] is carry["pyr"]
+    assert not _storages((new_carry["kp"], new_carry["misc"], per_slot,
+                          n_new)) & _storages(inputs)
+    assert int(n_new) > 0 and (per_slot[:, 4] > 0).sum() > 50
+
+
 def _ba_buffer(n_poses, n_points, n_obs, n_free, P, X, O):
     args, _, _ = make_ba_inputs(n_poses, n_points, n_obs, seed=0,
                                 n_free=n_free)
@@ -191,6 +216,28 @@ def test_cache_key_follows_static_arguments_and_shapes():
         bkeys.add(k)
     assert bprog.key(buf[:-4], **bkw) not in bkeys
 
+    carry, right, state, kkw = keyframe_inputs(Params(stereo=True), "cpu",
+                                               **SMALL)
+    kprog = ks._KEYFRAME_STEP
+    kbase = kprog.key(carry, right, state, **kkw)
+    other = dict(carry, kp=carry["kp"] + 1.0)
+    assert kprog.key(other, right * 0.5, state * 2.0, **kkw) == kbase
+    kkeys = {kbase}
+    for name, value in kkw.items():
+        changed = (not value if isinstance(value, bool)
+                   else value + (1 if isinstance(value, int) else 0.5))
+        k = kprog.key(carry, right, state, **dict(kkw, **{name: changed}))
+        assert k not in kkeys, name
+        kkeys.add(k)
+    dense, dright, dstate, dkw = keyframe_inputs(Params(**CONFIGS["dense"]),
+                                                 "cpu", **SMALL)
+    for args in [(dense, dright, dstate), (carry, right[:-8], state),
+                 (carry, right, state[:-16])]:
+        k = kprog.key(*args, **kkw)
+        assert k not in kkeys
+        kkeys.add(k)
+    assert kprog.key(dense, dright, dstate, **dkw) not in kkeys
+
 
 def test_cpu_call_is_the_eager_function_and_captures_nothing():
     """(d)"""
@@ -209,6 +256,19 @@ def test_cpu_call_is_the_eager_function_and_captures_nothing():
     assert len(ba.local_bundle_adjustment_packed.entries) == bentries
     with pytest.raises(TypeError, match="keyword"):
         ba.local_bundle_adjustment_packed(buf, 16, **bkw)
+
+    carry, right, state, kkw = keyframe_inputs(Params(stereo=True), "cpu",
+                                               **SMALL)
+    kentries = len(ks._KEYFRAME_STEP.entries)
+    before = ks.keyframe_step_carry.launches
+    new_carry, per_slot, n_new = ks.keyframe_step_carry(carry, right, state,
+                                                        **kkw)
+    assert ks.keyframe_step_carry.launches == before + 1
+    _assert_bits_equal((new_carry["kp"], new_carry["misc"], per_slot,
+                        n_new),
+                       ks.keyframe_step_carry_eager(carry, right, state,
+                                                    **kkw))
+    assert len(ks._KEYFRAME_STEP.entries) == kentries
 
 
 def _counted():
@@ -248,6 +308,25 @@ def test_replay_adds_the_launches_its_capture_recorded():
     assert (a.launches, b.launches) == (5 + 4 * 3, 4)
     a()
     assert a.launches == 18
+
+
+def test_keyframe_program_counts_on_itself_under_a_spy(monkeypatch):
+    """(e) A caller that replaces the module's attribute (a spy, a sync
+    check) leaves the count on the program itself."""
+    carry, right, state, kw = keyframe_inputs(Params(stereo=True), "cpu",
+                                              **SMALL)
+    program = ks.keyframe_step_carry
+    calls = []
+
+    def spy(*args, **static):
+        calls.append(1)
+        return program(*args, **static)
+
+    monkeypatch.setattr(ks, "keyframe_step_carry", spy)
+    before = program.launches
+    ks.keyframe_step_carry(carry, right, state, **kw)
+    assert calls == [1] and program.launches == before + 1
+    assert not hasattr(spy, "launches")
 
 
 def test_clone_keeps_views_of_one_storage():
@@ -325,6 +404,18 @@ def test_track_step_is_capturable(five_point):
     with mode:
         ts.track_step_eager(carry, images[0], dt, key, **kw)
     assert mode.hits == []
+
+
+@pytest.mark.parametrize("config", list(KEYFRAME_CONFIGS))
+def test_keyframe_step_carry_is_capturable(config):
+    carry, right, state, kw = keyframe_inputs(
+        Params(**KEYFRAME_CONFIGS[config]), "cpu", **SMALL)
+    ks.keyframe_step_carry_eager(carry, right, state, **kw)  # fill caches
+    mode = _CaptureHazards()
+    with mode:
+        out = ks.keyframe_step_carry_eager(carry, right, state, **kw)
+    assert mode.hits == []
+    assert int(out[3]) > 0
 
 
 def test_ba_is_capturable():
