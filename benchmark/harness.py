@@ -9,13 +9,26 @@ The system under test is `slamtpu_torch`, driven through its public API
 (`SlamManager`, `Params`, `Camera`). The harness reads the port's stage
 timers (`TIMERS`) and its programs' counters (`Program.stats()`), and keeps
 a sample of the local BA solves' inputs and answers for the reference.
+
+A configuration whose `params` set `sequential` false is the threaded
+deployment: `add_stereo_image` only enqueues, and three worker threads
+track, map and optimize. The harness feeds a frame once the manager's, the
+mapper's and the estimator's queues have drained, as SLAM.jl's KITTI
+example does; it stops a drive's workers with `wait()` before `finish()`,
+and never synchronizes the device while a worker thread lives (a
+device-wide synchronize kills a CUDA graph capture on the estimator
+thread). Every wait on the workers has a deadline and watches them; a drive
+whose worker raises, dies or stalls is failed, and the run is not correct
+but still ends.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import random
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -31,6 +44,11 @@ BA_SAMPLE = 8
 # which hold keyframes.
 TRACE_DRIVE = 1
 TRACE_FRAMES = (20, 30)
+# Threaded feed: the feeding thread polls the three queues this often, and
+# gives up on a wait on the workers (the queues' drain before a frame, the
+# stop) after GUARD_S seconds, as stalled.
+POLL_S = 0.002
+GUARD_S = 60.0
 
 
 def load_json(path: Path):
@@ -89,18 +107,53 @@ def load_cell(root: Path, workload: str) -> Cell:
     )
 
 
+# Set while local BA writes a keyframe's refined pose (`ba_writes_marked`),
+# on the thread that writes it.
+_BA_WRITE = threading.local()
+
+
+@contextlib.contextmanager
+def ba_writes_marked():
+    """While open, the poses that local BA writes (`Frame.set_cw_ba`, the
+    estimator's only pose write) reach the sink marked as BA's."""
+    from slamtpu_torch.models import frame
+
+    orig = frame.Frame.set_cw_ba
+
+    def set_cw_ba(self, theta, slam_io=None):
+        _BA_WRITE.on = True
+        try:
+            return orig(self, theta, slam_io)
+        finally:
+            _BA_WRITE.on = False
+
+    frame.Frame.set_cw_ba = set_cw_ba
+    try:
+        yield
+    finally:
+        frame.Frame.set_cw_ba = orig
+
+
 class Sink:
     """The pose sink handed to the SlamManager (`slam_io`): the time of
-    each frame's first pose and its latest pose. Sequential mode writes
-    from the feeding thread only."""
+    each frame's first pose, its latest pose, and its latest pose as
+    tracked (`tracked`): written by anything but local BA, whose refined
+    keyframe poses (`ba_writes_marked`) are the keyframe layer's. Both
+    modes: in sequential mode every write comes from the feeding thread; in
+    threaded mode tracking writes from the manager thread, and BA from the
+    estimator thread and from `finish()`."""
 
     def __init__(self):
         self.first = {}
         self.latest = {}
+        self.tracked = {}
 
     def set_frame_wc(self, frame_id: int, wc):
+        pose = np.array(wc, dtype=np.float64)
         self.first.setdefault(frame_id, time.perf_counter())
-        self.latest[frame_id] = np.array(wc, dtype=np.float64)
+        self.latest[frame_id] = pose
+        if not getattr(_BA_WRITE, "on", False):
+            self.tracked[frame_id] = pose
 
 
 @dataclass
@@ -115,6 +168,10 @@ class Drive:
     kf_wc: dict = None                           # frame id -> its final wc
     cut: bool = False                            # the window ended inside
     cut_at: float = 0.0
+    # Threaded feed: each fed frame's wait for the three queues to drain
+    # (seconds) and whether the traced span was open during it.
+    waits: list = field(default_factory=list)
+    failed: bool = False                         # a worker died or stalled
 
 
 class BASample:
@@ -157,12 +214,18 @@ class BASample:
 class RunRecord:
     """What the per-layer readers read: the stage timers' durations over
     the window (seconds), the programs' stats before and after it, the
-    trace of the traced span (None without --trace 1), the frames fed."""
+    trace of the traced span (None without --trace 1), the frames fed, and
+    in threaded mode each window frame's wait for the queues to drain
+    outside the traced span (seconds) and the traced span's bounds in
+    `perf_counter_ns` (None otherwise): worker threads' spans are never
+    `profiled`, so the span readers drop those that closed inside it."""
     timers: dict
     programs_before: dict
     programs_after: dict
     trace: object
     frames_fed: int
+    feed_waits: list = field(default_factory=list)
+    traced_ns: tuple = None
 
 
 def _sync(device):
@@ -181,7 +244,9 @@ class Runner:
     """Set-up (scenes, frames, a warm-up drive of each) and the drives of
     one cell. The mix's `scenes` is a number of scene seeds that `--seed`
     draws, or a list of them, for a mix whose work follows its scenes;
-    `--seed` draws the order the window drives them in."""
+    `--seed` draws the order the window drives them in. A configuration
+    with `sequential` false in its `params` is driven by the threaded feed,
+    each frame once the three queues have drained."""
 
     def __init__(self, cell: Cell, seed: int, device):
         import torch
@@ -212,6 +277,28 @@ class Runner:
         self.right = Camera(rig.fx, rig.fy, rig.cx, rig.cy, rig.height,
                             rig.width, Ti0=ti0)
         self._queue = []
+        self.threaded = not cell.config["params"].get("sequential", True)
+        self.workers = []        # every worker thread of the run's managers
+        self.raised = set()      # threads that ended by an exception
+        self.failures = 0        # drives failed by a dead or stalled worker
+
+    @contextlib.contextmanager
+    def watching(self):
+        """While open, every thread that ends by an exception is kept in
+        `raised` (`threading.excepthook`, which then reports it as
+        before), so that a worker that raises fails its drive even where
+        its queue is left empty and `wait()` returns."""
+        prev = threading.excepthook
+
+        def hook(args):
+            self.raised.add(args.thread)
+            prev(args)
+
+        threading.excepthook = hook
+        try:
+            yield self
+        finally:
+            threading.excepthook = prev
 
     def next_scene(self) -> int:
         """The window's next scene: each cycle drives every scene once, in
@@ -231,6 +318,8 @@ class Runner:
         sm = SlamManager(Params(**self.cell.config["params"]), self.camera,
                          right_camera=self.right, slam_io=d.sink,
                          device=self.device)
+        if self.threaded:
+            return self._drive_threaded(sm, d, deadline, hook)
         ts = self.scenes[k].timestamps
         for i, (left, right) in enumerate(self.frames[k]):
             if hook is not None:
@@ -249,7 +338,106 @@ class Runner:
             self.finish(d)
         return d
 
+    def _drive_threaded(self, sm, d: Drive, deadline, hook) -> Drive:
+        """`drive` with the threaded feed: frame i goes in once the
+        manager's image queue, the mapper's keyframe queue and the
+        estimator's queue are all empty (SLAM.jl's KITTI example,
+        example/kitty/main.jl:46-54). A worker that raises, dies or stalls
+        fails the drive, which then ends as a cut one."""
+        self.workers += sm._threads
+        self._sm = sm
+        est = sm.mapper.estimator
+        ts = self.scenes[d.scene].timestamps
+        for i, (left, right) in enumerate(self.frames[d.scene]):
+            if hook is not None:
+                hook(i, True)
+            t0 = time.perf_counter()
+            drained = self._until(sm, lambda: not (
+                sm.get_queue_size() or sm.mapper.keyframe_queue
+                or est.frame_queue))
+            now = time.perf_counter()
+            if not drained:
+                self._fail(d)
+                d.cut, d.cut_at = True, now
+                return d
+            if (deadline is not None and now >= deadline
+                    and (hook is None or hook.done)):
+                d.cut, d.cut_at = True, now
+                return d
+            d.waits.append((now - t0, hook is not None and hook.open))
+            d.fed.append(now)
+            sm.add_stereo_image(left, right, float(ts[i]))
+            if hook is not None:
+                hook(i, False)
+        self.finish(d)
+        return d
+
+    def _dead(self, sm) -> bool:
+        """A worker of sm raised (at any time), or ended before the stop
+        (`exit_required`)."""
+        return (any(t in self.raised for t in sm._threads)
+                or not sm.exit_required
+                and not all(t.is_alive() for t in sm._threads))
+
+    def _until(self, sm, done) -> bool:
+        """Poll done() every POLL_S while sm's workers live; False once one
+        is dead (`_dead`) or GUARD_S has passed."""
+        give_up = time.perf_counter() + GUARD_S
+        while not done():
+            if self._dead(sm) or time.perf_counter() > give_up:
+                return False
+            time.sleep(POLL_S)
+        return True
+
+    def _stop(self, d: Drive) -> bool:
+        """The threaded drive's stop: `wait()` (it drains the three queues,
+        then stops and joins the workers), run on a thread of its own so
+        that a dead worker, whose queue never drains, cannot hang the run;
+        then every worker dead, none of them by an exception. False, and the
+        drive failed, otherwise."""
+        sm = self._sm
+        waiter = threading.Thread(target=sm.wait, daemon=True,
+                                  name="benchmark-wait")
+        waiter.start()
+        if (self._until(sm, lambda: not waiter.is_alive())
+                and self._until(sm, lambda: not any(
+                    t.is_alive() for t in sm._threads))
+                and not self._dead(sm)):
+            return True
+        self._fail(d)
+        return False
+
+    def _fail(self, d: Drive):
+        """A worker raised, died or stalled: the drive failed. The manager's queues
+        are emptied and its workers told to exit, so that `wait()`, if it
+        runs, and each live worker can end."""
+        sm = self._sm
+        d.failed = True
+        self.failures += 1
+        sm.exit_required = True
+        with sm._queue_lock:
+            sm._image_queue.clear()
+        sm.mapper.keyframe_queue.clear()
+        sm.mapper.estimator.frame_queue.clear()
+        for t in sm._threads:
+            t.join(timeout=5.0)
+        self._sm = None
+
+    def quiet(self) -> bool:
+        """No worker thread of any of the run's managers lives."""
+        return not any(t.is_alive() for t in self.workers)
+
+    def sync(self):
+        """Synchronize the device, unless a worker thread lives (a failed
+        drive's stalled worker): then the device is left alone."""
+        if self.quiet():
+            _sync(self.device)
+
     def finish(self, d: Drive):
+        if d.failed:
+            return
+        if self.threaded and not self._stop(d):
+            return
         sm = self._sm
         sm.finish()
         d.resets = sm.n_resets
@@ -273,16 +461,24 @@ class SpanHook:
     """Profiles frames TRACE_FRAMES of the window's drive TRACE_DRIVE
     (--trace 1). Keeps where the stage timers stood at the span's start and
     after the profiler's exit, so that the timer metrics can leave out the
-    profiled frames; the trace is reduced once the window has closed."""
+    profiled frames; the trace is reduced once the window has closed.
 
-    def __init__(self, device):
+    Sequential mode synchronizes the device at both ends of the span. In
+    threaded mode the span covers the feeding of those frames, no end
+    synchronizes, and the profiler starts and stops (its exit synchronizes
+    the device) holding the port's capture lock, under which every CUDA
+    graph capture runs: no capture can be in flight then."""
+
+    def __init__(self, device, threaded=False):
         self.a, self.b = TRACE_FRAMES
         self.device = device
+        self.threaded = threaded
         self.current = -1
         self.open = False
         self.done = False
         self.prof = None
         self.timer_marks = None
+        self.ns = None           # the span's bounds, perf_counter_ns
 
     def __call__(self, i, before):
         from torch.profiler import ProfilerActivity, profile, \
@@ -293,23 +489,34 @@ class SpanHook:
         if self.current != TRACE_DRIVE or self.done:
             return
         if before and i == self.a:
-            _sync(self.device)
+            if not self.threaded:
+                _sync(self.device)
             self.timer_marks = (_timer_counts(TIMERS), None)
+            self.ns = (time.perf_counter_ns(), None)
             self.prof = profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA])
-            self.prof.__enter__()
+            with self._no_capture():
+                self.prof.__enter__()
             self.span = record_function(SPAN)
             self.span.__enter__()
             self.open = True
         elif not before and i == self.b - 1 and self.open:
-            _sync(self.device)
+            if not self.threaded:
+                _sync(self.device)
             # The span ends before the profiler exits: the exit's own
             # host cost is no part of it.
             self.span.__exit__(None, None, None)
-            self.prof.__exit__(None, None, None)
+            with self._no_capture():
+                self.prof.__exit__(None, None, None)
             self.open = False
             self.done = True
             self.timer_marks = (self.timer_marks[0], _timer_counts(TIMERS))
+            self.ns = (self.ns[0], time.perf_counter_ns())
+
+    def _no_capture(self):
+        from slamtpu_torch import programs
+        return (programs._CAPTURE_LOCK if self.threaded
+                else contextlib.nullcontext())
 
     def trace(self):
         from devtrace import from_profile
@@ -348,7 +555,7 @@ def judge(cell: Cell, runner: Runner, drives: list, sampled: list,
         n = len(d.fed)
         scene = runner.scenes[d.scene]
         gt = scene.poses_wc
-        if d.resets:
+        if d.resets or d.failed:
             unposed += n
             continue
         ids = [i for i in range(n) if (i + 1) in d.sink.latest]
@@ -359,7 +566,10 @@ def judge(cell: Cell, runner: Runner, drives: list, sampled: list,
             continue
         est = np.stack([d.sink.latest[i + 1] for i in ids])
         ate.append(ate_rmse(est[:, :3, 3], gt[ids, :3, 3]))
-        steps = step_errors(est, gt[ids])
+        # The tracked frame's steps, on the poses as tracked: BA's later
+        # writes are the keyframe layer's, not tracking's.
+        tracked = np.stack([d.sink.tracked[i + 1] for i in ids])
+        steps = step_errors(tracked, gt[ids])
         step_max.append(float(steps.max()))
         step_p50.append(float(np.median(steps)))
         err = map_depth_errors(d.map_points, d.map_kf, d.kf_wc, scene,
@@ -374,6 +584,7 @@ def judge(cell: Cell, runner: Runner, drives: list, sampled: list,
 
     numbers = {
         "unposed": float(unposed),
+        "worker_failures": float(runner.failures),
         "step_p50_m": worst(step_p50),
         "map_depth_err_p50": worst(mapm),
         "ba_grad_ratio_p50": (float(np.median(grad)) if grad
@@ -413,12 +624,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         from slamtpu_torch import kernels
         kernels.library()
     runner = Runner(cell, seed, device)
-    hook = SpanHook(device) if trace else None
+    hook = SpanHook(device, runner.threaded) if trace else None
 
-    with BASample(estimator, seed) as sample:
+    with BASample(estimator, seed) as sample, runner.watching(), \
+            ba_writes_marked():
         for k in range(len(runner.scenes)):   # warm-up: every key captured
             runner.drive(k)
-        _sync(device)
+        runner.sync()
         before = _programs_stats()
         TIMERS.reset()
         t_start = time.perf_counter()
@@ -441,19 +653,19 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         after = _programs_stats()
         if drives[-1].cut:
             runner.finish(drives[-1])
-        _sync(device)
+        runner.sync()
         sample.active = False
         sampled = list(sample.kept)
     window_s = t_end - t_start
     span = hook.trace() if hook else None
 
-    posed = sum(1 for d in drives for f in d.sink.first.values()
-                if f <= t_end)
+    posed = sum(1 for d in drives if not d.failed
+                for f in d.sink.first.values() if f <= t_end)
     lat = []
     for d in drives:
         for i, t_fed in enumerate(d.fed):
             first = d.sink.first.get(i + 1)
-            if first is not None and not d.resets:
+            if first is not None and not d.resets and not d.failed:
                 lat.append(first - t_fed)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -464,7 +676,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     e2e = {"fps": posed / window_s,
            "pose_latency_p95_ms": 1e3 * percentile(lat, 95),
            "setup_s": setup_s}
-    record = RunRecord(timers, before, after, span, attempted)
+    record = RunRecord(timers, before, after, span, attempted,
+                       [w for d in drives for w, traced in d.waits
+                        if not traced],
+                       hook.ns if hook and runner.threaded else None)
     if trace:
         metrics = {}
         for m, read in cell.per_layer:
@@ -476,7 +691,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                                "unit": m["unit"]}
                    for m in cell.end_to_end}
     checks = verdict["checks"]
-    correct = all(c["value"] <= c["limit"] for c in checks.values())
+    correct = (all(c["value"] <= c["limit"] for c in checks.values())
+               and not runner.failures)
     out = {"correct": correct, "attempted": attempted,
            "failed": verdict["unposed"], "metrics": metrics,
            "device": {"platform": "gpu" if device.type == "cuda" else "cpu",

@@ -57,30 +57,43 @@ def ba_answer_discarded():
 @contextlib.contextmanager
 def pose_written_stale():
     """The tracked frame's guarantee broken: every other frame (from
-    STALE_FROM on), the pose that the tracking step's apply writes for it is
-    the previous frame's pose written again. The program goes on from the
-    pose it tracked."""
+    STALE_FROM on), the pose that the front end writes for it is the
+    previous frame's pose written again. Sequential mode: the pose the
+    tracking step's apply writes; threaded mode (which never pipelines):
+    the pose the manager thread's `track` writes. The program goes on from
+    the pose it tracked."""
     from slamtpu_torch.models import front_end
 
-    orig = front_end.FrontEnd.pipeline_apply
+    orig_apply = front_end.FrontEnd.pipeline_apply
+    orig_track = front_end.FrontEnd.track
     last = {}
 
-    def apply(self, rec, per_kp, scalars, slam_io=None):
-        out = orig(self, rec, per_kp, scalars, slam_io)
-        frame = self.current_frame
+    def stale(frame, slam_io):
         if slam_io is not None:
             prev = last.get((id(slam_io), frame.id - 1))
             if frame.id >= STALE_FROM and frame.id % 2 == 0 \
                     and prev is not None:
                 slam_io.set_frame_wc(frame.id, prev)
             last[(id(slam_io), frame.id)] = np.array(frame.wc)
+
+    def apply(self, rec, per_kp, scalars, slam_io=None):
+        out = orig_apply(self, rec, per_kp, scalars, slam_io)
+        stale(self.current_frame, slam_io)
+        return out
+
+    def track(self, image_dev, time, slam_io=None):
+        out = orig_track(self, image_dev, time, slam_io)
+        if not self.params.sequential:
+            stale(self.current_frame, slam_io)
         return out
 
     front_end.FrontEnd.pipeline_apply = apply
+    front_end.FrontEnd.track = track
     try:
         yield
     finally:
-        front_end.FrontEnd.pipeline_apply = orig
+        front_end.FrontEnd.pipeline_apply = orig_apply
+        front_end.FrontEnd.track = orig_track
 
 
 @contextlib.contextmanager

@@ -69,6 +69,10 @@ def main(argv=None) -> int:
         return 3
     for c in out["checks"].values():
         c["value"] = _finite(c["value"])
+    # A run that is not correct may read no latency at all (every drive
+    # failed): the line leaves such a metric out rather than print NaN.
+    out["metrics"] = {k: m for k, m in out["metrics"].items()
+                      if _finite(m["value"]) is not None}
     # The readings go to standard error only: they may hold NaN, which the
     # result line must not.
     print("info " + json.dumps(out.pop("info"), default=float),

@@ -34,7 +34,11 @@ def window(run):
     """(spans, device times) of the window as `run.timers` counts it: of
     each name, the first that many records outside the traced span (the
     later ones are the last drive's finish, after the window closed).
-    None without the recorder, or where its ring may have dropped some."""
+    Outside the traced span: not `profiled` and, where the run gives the
+    span's bounds (`run.traced_ns`, threaded mode, whose worker threads'
+    records are never `profiled`), a span that did not close inside them
+    and a device time whose call's span did not. None without the
+    recorder, or where its ring may have dropped some."""
     timers = recorder()
     if timers is None:
         return None
@@ -42,14 +46,18 @@ def window(run):
     if len(spans) >= timers.capacity or len(device) >= timers.capacity:
         return None
     left = {k: len(v) for k, v in run.timers.items()}
+    bounds = run.traced_ns
+    inside = (set() if bounds is None else
+              {s.id for s in spans if bounds[0] <= s.end <= bounds[1]})
 
-    def keep(r):
-        if r.profiled or left.get(r.name, 0) <= 0:
+    def keep(r, traced):
+        if r.profiled or traced or left.get(r.name, 0) <= 0:
             return False
         left[r.name] -= 1
         return True
 
-    return [s for s in spans if keep(s)], [d for d in device if keep(d)]
+    return ([s for s in spans if keep(s, s.id in inside)],
+            [d for d in device if keep(d, d.parent in inside)])
 
 
 def mean(values):
