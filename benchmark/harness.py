@@ -10,9 +10,20 @@ The system under test is `slamtpu_torch`, driven through its public API
 timers (`TIMERS`) and its programs' counters (`Program.stats()`), and keeps
 a sample of the local BA solves' inputs and answers for the reference.
 
+A configuration whose `params` leave `stereo` false (the `Params()`
+default) is a monocular deployment: its drives render the left images
+only, every frame goes in through `add_image`, the manager gets no right
+camera, and `judge` reads each drive after one similarity transform
+(scale, rotation, translation) fitted on its positions, since a monocular
+trajectory's scale is its five-point initialisation's own. Its file
+states within how many frames of a drive's start the initialisation comes
+(`init_frames_max`); a frame that waits longer has no pose of its own and
+counts as unposed. A stereo configuration is fed through
+`add_stereo_image` and judged as metric.
+
 A configuration whose `params` set `sequential` false is the threaded
-deployment: `add_stereo_image` only enqueues, and three worker threads
-track, map and optimize. The harness feeds a frame once the manager's, the
+deployment: a feed call only enqueues, and three worker threads track,
+map and optimize. The harness feeds a frame once the manager's, the
 mapper's and the estimator's queues have drained, as SLAM.jl's KITTI
 example does; it stops a drive's workers with `wait()` before `finish()`,
 and never synchronizes the device while a worker thread lives (a
@@ -49,6 +60,8 @@ TRACE_FRAMES = (20, 30)
 # stop) after GUARD_S seconds, as stalled.
 POLL_S = 0.002
 GUARD_S = 60.0
+# Length (s) of the slices of the window whose rates `info` reports.
+SLICE_S = 10.0
 
 
 def load_json(path: Path):
@@ -159,7 +172,7 @@ class Sink:
 @dataclass
 class Drive:
     scene: int = 0
-    fed: list = field(default_factory=list)      # add_stereo_image times
+    fed: list = field(default_factory=list)      # each frame's feed call
     sink: Sink = field(default_factory=Sink)
     resets: int = 0
     keyframes: int = 0
@@ -246,7 +259,8 @@ class Runner:
     draws, or a list of them, for a mix whose work follows its scenes;
     `--seed` draws the order the window drives them in. A configuration
     with `sequential` false in its `params` is driven by the threaded feed,
-    each frame once the three queues have drained."""
+    each frame once the three queues have drained; one that leaves `stereo`
+    false is fed its left images through `add_image`."""
 
     def __init__(self, cell: Cell, seed: int, device):
         import torch
@@ -269,13 +283,21 @@ class Runner:
             rig, n_frames=int(t["frames_per_drive"]),
             n_points=int(t["n_points"]), seed=k, layout=t["layout"])
             for k in self.scene_seeds]
-        self.frames = [render_drive(sc, self.device) for sc in self.scenes]
+        self.stereo = bool(cell.config["params"].get("stereo", False))
+        self.frames = [render_drive(sc, self.device, self.stereo)
+                       for sc in self.scenes]
         self.camera = Camera(rig.fx, rig.fy, rig.cx, rig.cy, rig.height,
                              rig.width)
-        ti0 = np.eye(4)
-        ti0[0, 3] = -rig.baseline
-        self.right = Camera(rig.fx, rig.fy, rig.cx, rig.cy, rig.height,
-                            rig.width, Ti0=ti0)
+        self.right = None
+        # A monocular configuration states within how many frames of a
+        # drive's start its five-point initialisation comes.
+        self.init_frames_max = (None if self.stereo else
+                                int(cell.config["init_frames_max"]))
+        if self.stereo:
+            ti0 = np.eye(4)
+            ti0[0, 3] = -rig.baseline
+            self.right = Camera(rig.fx, rig.fy, rig.cx, rig.cy, rig.height,
+                                rig.width, Ti0=ti0)
         self._queue = []
         self.threaded = not cell.config["params"].get("sequential", True)
         self.workers = []        # every worker thread of the run's managers
@@ -330,13 +352,22 @@ class Runner:
                 d.cut, d.cut_at = True, now
                 break
             d.fed.append(now)
-            sm.add_stereo_image(left, right, float(ts[i]))
+            self._feed(sm, left, right, float(ts[i]))
             if hook is not None:
                 hook(i, False)
         self._sm = sm
         if not d.cut:
             self.finish(d)
         return d
+
+    @staticmethod
+    def _feed(sm, left, right, t: float):
+        """One frame: the pair through `add_stereo_image`, a left image
+        alone (a monocular configuration) through `add_image`."""
+        if right is None:
+            sm.add_image(left, t)
+        else:
+            sm.add_stereo_image(left, right, t)
 
     def _drive_threaded(self, sm, d: Drive, deadline, hook) -> Drive:
         """`drive` with the threaded feed: frame i goes in once the
@@ -366,7 +397,7 @@ class Runner:
                 return d
             d.waits.append((now - t0, hook is not None and hook.open))
             d.fed.append(now)
-            sm.add_stereo_image(left, right, float(ts[i]))
+            self._feed(sm, left, right, float(ts[i]))
             if hook is not None:
                 hook(i, False)
         self.finish(d)
@@ -541,16 +572,48 @@ def window_timers(timers, marks) -> dict:
             for k, v in durations.items()}
 
 
+def mono_judged(tracked: dict, ids: list):
+    """The frames of a monocular drive that are judged, and how many are
+    left out: until the five-point initialisation the program has no motion
+    to measure and writes the first frame's pose again; the first frame and
+    every frame from the first that moved off its pose are judged."""
+    first = tracked[ids[0] + 1]
+    moved = next((j for j, i in enumerate(ids)
+                  if not np.array_equal(tracked[i + 1], first)), len(ids))
+    return ids[:1] + ids[moved:], moved - 1
+
+
+def align_mono(tracked, gt_tracked, points, kf_wc: dict, gt_wc):
+    """A monocular drive put into the truth's frame and scale by one
+    similarity each for its trajectory and its map, fitted on positions:
+    the poses as tracked to their true poses (returned moved, for the
+    steps), and the keyframes' final poses to theirs (the keyframes and the
+    map points returned moved, for the map)."""
+    from reference import (similarity_points, similarity_poses,
+                           umeyama_alignment)
+    track = umeyama_alignment(tracked[:, :3, 3], gt_tracked[:, :3, 3])
+    ids = sorted(kf_wc)
+    kfs = np.stack([kf_wc[k] for k in ids])
+    mapping = umeyama_alignment(kfs[:, :3, 3],
+                                gt_wc[[k - 1 for k in ids], :3, 3])
+    moved = similarity_poses(mapping, kfs)
+    return (similarity_poses(track, tracked),
+            similarity_points(mapping, points),
+            {k: moved[j] for j, k in enumerate(ids)})
+
+
 def judge(cell: Cell, runner: Runner, drives: list, sampled: list,
           device) -> dict:
     """The reference's numbers over the window's drives. Those named in
     limits/<cell>.json are compared, each with its limit; the others are
-    readings only (PERF.md says why)."""
+    readings only (PERF.md says why). A monocular drive is judged after one
+    similarity per drive (`align_mono`)."""
     from reference import (ate_rmse, ba_solve_check, map_depth_errors,
                            step_errors)
+    mono = not runner.stereo
 
     unposed = 0
-    ate, step_max, step_p50, mapm = [], [], [], []
+    ate, step_max, step_p50, mapm, pre_init = [], [], [], [], []
     for d in drives:
         n = len(d.fed)
         scene = runner.scenes[d.scene]
@@ -564,16 +627,32 @@ def judge(cell: Cell, runner: Runner, drives: list, sampled: list,
         # short of half its frames hold too few frames to judge.
         if len(ids) < max(3, len(gt) // 2):
             continue
+        if mono:
+            ids, waiting = mono_judged(d.sink.tracked, ids)
+            pre_init.append(waiting)
+            # Frames that still wait for the initialisation past the
+            # configuration's `init_frames_max` have no pose of their own,
+            # cut drive or whole; so has every waiting frame of a whole
+            # drive with fewer than three frames posed since it.
+            late = max(0, waiting - runner.init_frames_max)
+            if len(ids) < 3:
+                unposed += late if d.cut else waiting
+                continue
+            unposed += late
         est = np.stack([d.sink.latest[i + 1] for i in ids])
-        ate.append(ate_rmse(est[:, :3, 3], gt[ids, :3, 3]))
+        ate.append(ate_rmse(est[:, :3, 3], gt[ids, :3, 3],
+                            align_scale=mono))
         # The tracked frame's steps, on the poses as tracked: BA's later
         # writes are the keyframe layer's, not tracking's.
         tracked = np.stack([d.sink.tracked[i + 1] for i in ids])
+        points, kf_wc = d.map_points, d.kf_wc
+        if mono:
+            tracked, points, kf_wc = align_mono(tracked, gt[ids], points,
+                                                kf_wc, scene.poses_wc)
         steps = step_errors(tracked, gt[ids])
         step_max.append(float(steps.max()))
         step_p50.append(float(np.median(steps)))
-        err = map_depth_errors(d.map_points, d.map_kf, d.kf_wc, scene,
-                               device)
+        err = map_depth_errors(points, d.map_kf, kf_wc, scene, device)
         mapm.append(float(np.median(err)) if len(err) else float("nan"))
     ba = [ba_solve_check(*s) for s in sampled]
     ba = [b for b in ba if b["free_poses"] > 0]
@@ -594,6 +673,8 @@ def judge(cell: Cell, runner: Runner, drives: list, sampled: list,
         "ba_grad_ratio_max": worst(grad),
         "ba_cost_ratio_max": worst([b["cost_ratio"] for b in ba]),
     }
+    if mono:
+        numbers["pre_init_frames"] = float(worst(pre_init))
     info = {
         "numbers": numbers,
         "scene_seeds": runner.scene_seeds,
@@ -604,9 +685,29 @@ def judge(cell: Cell, runner: Runner, drives: list, sampled: list,
         "ate_each": ate, "step_each": step_max, "step_p50_each": step_p50,
         "map_each": mapm, "ba_each": ba,
     }
+    if mono:
+        info["pre_init_each"] = pre_init
     checks = {k: {"value": numbers[k], "limit": float(v)}
               for k, v in cell.limits.items()}
     return {"checks": checks, "info": info, "unposed": unposed}
+
+
+def rates(drives: list, t_start: float, t_end: float) -> dict:
+    """Readings, after the window, of how its rate moves within it: each
+    whole drive's posed frames from its first feed call to its last first
+    pose (`drive_fps`), and the poses written in each whole SLICE_S slice
+    of the window over its length (`slice_fps`)."""
+    firsts = [f for d in drives if not d.failed
+              for f in d.sink.first.values() if f <= t_end]
+    edges = t_start + SLICE_S * np.arange(int((t_end - t_start) // SLICE_S)
+                                          + 1)
+    counts = np.histogram(firsts, bins=edges)[0] if len(edges) > 1 else []
+    whole = [d for d in drives if not d.cut and not d.failed and d.sink.first
+             and max(d.sink.first.values()) > d.fed[0]]
+    return {"drive_fps": [len(d.sink.first)
+                          / (max(d.sink.first.values()) - d.fed[0])
+                          for d in whole],
+            "slice_fps": [float(c) / SLICE_S for c in counts]}
 
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
@@ -705,6 +806,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         out["breakdown"] = span.breakdown()
     out["info"] = dict(verdict["info"], window_s=window_s, posed=posed,
                        e2e=e2e,
-                       ba_solves_in_window=sample.seen)
+                       ba_solves_in_window=sample.seen,
+                       **rates(drives, t_start, t_end))
     out["checks"] = checks
     return out

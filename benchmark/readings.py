@@ -100,14 +100,17 @@ def pose_written_stale():
 def triangulation_deep():
     """The map's guarantee broken: each point that triangulation turns 3D
     is placed at DEEP times its distance from the current frame's camera,
-    along the same ray."""
+    along the same ray. In a monocular configuration, whose map is
+    guaranteed only up to a similarity, a uniform deepening is largely a
+    change of scale: there every other new point (by id) is placed so."""
     from slamtpu_torch.models import map_manager
 
     orig = map_manager.MapManager.update_mappoint
 
     def update(self, mpid, new_position):
         mp = self.map_points.get(mpid)
-        if mp is not None and not mp.is_3d:
+        if (mp is not None and not mp.is_3d
+                and (self.params.stereo or mpid % 2 == 0)):
             c = np.asarray(self.current_frame.wc, np.float64)[:3, 3]
             new_position = c + DEEP * (np.asarray(new_position,
                                                   np.float64) - c)

@@ -4,9 +4,16 @@ It imports nothing of the program. It judges what the timed drives wrote
 against the scene's exact ground truth, and each sampled local BA solve
 against the problem that solve was given:
 
-- `ate_m`: a drive's metric trajectory error after a rigid alignment (no
-  scale: a stereo trajectory is metric), the frozen copy of the port's
-  eval/ate.py arithmetic;
+- `ate_m`: a drive's trajectory error after a rigid alignment (no scale:
+  a stereo trajectory is metric; a monocular one is aligned with its
+  scale), the frozen copy of the port's eval/ate.py arithmetic;
+- a monocular drive (`similarity_poses`, `similarity_points`): its scale
+  is its initialisation's own, so the steps and the map are judged after
+  one similarity per drive, fitted on positions (`umeyama_alignment`):
+  the poses as tracked to the truth for the steps, the keyframes' final
+  poses to the truth for the map (their poses and the map points moved
+  by it). One fit for the whole drive, never one per stretch of it, so
+  that scale drift shows;
 - step errors: the error of each frame-to-frame motion; their median over
   a drive (`step_p50_m`) shows poses that are stale, lost or altered in
   many frames, their largest (`step_err_m`) any single one;
@@ -50,6 +57,22 @@ def umeyama_alignment(src: np.ndarray, dst: np.ndarray,
     s = float(np.trace(np.diag(D) @ S) / var_s) if with_scale else 1.0
     t = mu_d - s * R @ mu_s
     return s, R, t
+
+
+def similarity_poses(sim, wc: np.ndarray) -> np.ndarray:
+    """(N, 4, 4) camera-to-world poses moved by the similarity
+    sim = (s, R, t): rotation R @ R_i, position s * R @ t_i + t."""
+    s, R, t = sim
+    out = np.array(wc, dtype=np.float64)
+    out[:, :3, :3] = R @ out[:, :3, :3]
+    out[:, :3, 3] = s * out[:, :3, 3] @ R.T + t
+    return out
+
+
+def similarity_points(sim, points: np.ndarray) -> np.ndarray:
+    """(M, 3) points moved by the similarity sim = (s, R, t)."""
+    s, R, t = sim
+    return s * np.asarray(points, dtype=np.float64) @ R.T + t
 
 
 def ate_rmse(estimated: np.ndarray, ground_truth: np.ndarray,

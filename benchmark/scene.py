@@ -182,12 +182,14 @@ def render(scene: Scene, pose_wc: np.ndarray, right: bool,
     return torch.clamp(img, 0.0, 1.0).reshape(h, w).to(torch.float32)
 
 
-def render_drive(scene: Scene, device) -> list:
+def render_drive(scene: Scene, device, stereo: bool = True) -> list:
     """Every frame of the drive as (left, right) host float32 arrays, the
-    form a camera driver hands over."""
+    form a camera hands them over in; right is None for a monocular rig,
+    whose right images are never rendered."""
     frames = []
     for pose in scene.poses_wc:
-        left = render(scene, pose, False, device)
-        right = render(scene, pose, True, device)
-        frames.append((left.cpu().numpy(), right.cpu().numpy()))
+        left = render(scene, pose, False, device).cpu().numpy()
+        right = (render(scene, pose, True, device).cpu().numpy() if stereo
+                 else None)
+        frames.append((left, right))
     return frames
